@@ -1,0 +1,613 @@
+"""GPU smoke run of the PyTorch/CUDA port (seqlib_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (any failure exits non-zero before the
+last line is printed):
+
+1. device: name, capability, ``nvidia-smi`` name and power limit;
+2. build: both CUDA kernels from ``seqlib_tpu_torch/csrc`` (nvcc's
+   register and spill report is printed);
+3. a seeded 4.6 Mbp reference (one contig with planted repeats) and
+   32,768 simulated 150 bp reads; the port's FM-index and aligner;
+4. one 4096-read batch through ``align_batch_bam`` on the card, which
+   also records every kernel call's inputs;
+5. kernels: K1 (banded extension) and K2 (SMEM machine) held against
+   their plain PyTorch versions on the card, bit for bit (tolerance 0),
+   on the recorded main-path inputs and on synthetic cases (random,
+   near-identical and empty lanes, w in {32, 100}, zdrop in {0, 100},
+   all three branches of the adaptive-band wrapper), and timed with
+   CUDA events;
+6. main path: 8 x 4096 reads through ``align_stream_bam`` on the card
+   with the launch counters reset just before and read just after;
+   the first batch's SAM must equal the port's CPU run byte for byte,
+   and at least 98% of reads must place their primary record at the
+   simulated position;
+7. numbers: reads/s, per-kernel ms and launches, peak device memory,
+   the profiler's top device ops, one JSON line of kernel numbers.
+
+The last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from seqlib_tpu_torch.align import BWAAligner
+from seqlib_tpu_torch.index import FMIndex
+from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, sw_cuda
+from seqlib_tpu_torch.ops.fm import _smem_machine
+from seqlib_tpu_torch.ops.sw import extend_batch
+from seqlib_tpu_torch.sim import make_genome, placement_rate, simulate_reads
+
+GENOME_BP = 4_600_000
+BATCH = 4096
+N_BATCHES = 8
+READ_BP = 150
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+# int32 ALU peak: the data sheet's 67 TFLOP/s float32 counts an FMA as
+# two operations on 128 lanes per SM; Hopper has 64 INT32 lanes per SM
+INT32_OPS_PER_S = 67e12 / 4
+K1_OPS_PER_CELL = 14               # int32 ops per band cell
+# K2's int32 operations, counted from csrc/smem_machine.cu: per BWT word
+# a rank popcounts, 7 to build the word's mask (sub, max, min, test,
+# shift, sub, shift) and 8 per code (xor, not, shift, 3 ands, popc,
+# add); per bi-extension 32 (two ranks' sentinel adjust, row address
+# and in-block offset: 2 x 6; k + s, four S/K pairs: 12; the sentinel
+# test and the L chain: 7).  The machine's per-step bookkeeping (mode
+# tests, stack pushes, seed stores) is not counted, so the bound is low
+# by that much.
+K2_OPS_PER_WORD = 7 + 4 * 8
+K2_OPS_PER_EXT = 32
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def smi_name_power() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call of fn() on the card (CUDA events, after one
+    warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def max_abs_diff(a: dict, b: dict, keys) -> int:
+    return max(int((a[k].to(torch.int64) - b[k].to(torch.int64))
+                   .abs().max()) if a[k].numel() else 0 for k in keys)
+
+
+# ---------------------------------------------------------------------------
+# K1: banded extension
+# ---------------------------------------------------------------------------
+
+K1_KEYS = ("score", "qle", "tle", "gscore", "gtle")
+
+
+def k1_inputs(gen: np.random.Generator, M: int, Lq: int, Lt: int,
+              near: float, empty: float, dev):
+    """Main-path-shaped extension lanes: random lanes, near-identical
+    lanes (target = query with ~1% edits) and qlen = 0 lanes."""
+    q = gen.integers(0, 4, (M, Lq)).astype(np.int8)
+    t = gen.integers(0, 4, (M, Lt)).astype(np.int8)
+    ql = gen.integers(1, Lq + 1, M).astype(np.int32)
+    tl = np.minimum(ql + gen.integers(0, Lt - Lq + 1, M), Lt).astype(np.int32)
+    h0 = gen.integers(19, 60, M).astype(np.int32)
+    kind = gen.random(M)
+    for m in np.flatnonzero(kind < near):
+        n = int(ql[m])
+        t[m, :n] = q[m, :n]
+        nerr = int(gen.integers(0, 4))
+        for p in gen.integers(0, n, nerr):
+            t[m, p] = (t[m, p] + 1) % 4
+        if gen.random() < 0.3:          # a short indel
+            cut = int(gen.integers(1, max(n, 2)))
+            k = int(gen.integers(1, 5))
+            t[m, cut:Lt] = np.roll(t[m, cut:Lt], k if gen.random() < 0.5
+                                   else -k)
+    ql[kind > 1.0 - empty] = 0
+    q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
+    t[np.arange(Lt)[None, :] >= tl[:, None]] = 4
+    return [torch.from_numpy(x).to(dev) for x in (q, ql, t, tl, h0)]
+
+
+def k1_cells(args, w: int, rows: torch.Tensor) -> int:
+    """Band cells the DP computes for these lanes (rows = DP rows each
+    lane ran, from the plain version)."""
+    q, _, t, tl, _ = args
+    Lq, Lt = q.shape[1], t.shape[1]
+    R = torch.arange(1, Lq + 1, device=q.device)[None, :]
+    tle = torch.clamp(tl.to(torch.int64), max=Lt)[:, None]
+    live = torch.clamp(torch.minimum(R + w, tle) - torch.clamp(R - w, min=0)
+                       + 1, min=0)
+    return int((live * (R <= rows.to(torch.int64)[:, None])).sum())
+
+
+def roof_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    """(max(bytes / HBM rate, int32 ops / int32 rate) in ms, which of
+    the two bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def k1_bound_ms(args, w: int, rows) -> tuple[float, str]:
+    """Roofline bound of one K1 call (``roof_ms``) over the band cells
+    these lanes need."""
+    q, _, t, _, _ = args
+    M = q.shape[0]
+    nbytes = q.numel() + t.numel() + 3 * 4 * M + 5 * 4 * M
+    ops = K1_OPS_PER_CELL * k1_cells(args, w, rows)
+    return roof_ms(nbytes, ops)
+
+
+def check_k1(args, w: int, zdrop: int, what: str) -> None:
+    kw = dict(band=w, zdrop=zdrop)
+    got = sw_cuda.extend_batch_banded_cuda(*args, **kw)
+    want = extend_batch(*args, **kw)
+    err = max_abs_diff(got, want, K1_KEYS)
+    if err:
+        raise AssertionError(f"K1 {what} w={w} zdrop={zdrop}: kernel differs "
+                             f"from plain (max |diff| {err})")
+
+
+def check_adaptive(gen, dev):
+    """The adaptive wrapper on inputs that force each branch."""
+    M, Lq, w = 3072, 160, 100
+    Lt = Lq + w + 1
+    cases = {"narrow_only": (1.0, 0.0), "compact_rerun": (0.95, 0.0),
+             "full_rerun": (0.0, 0.0)}
+    for branch, (near, empty) in cases.items():
+        for _ in range(20):
+            args = k1_inputs(gen, M, Lq, Lt, near, empty, dev)
+            if branch == "narrow_only":
+                # exact lanes: far above the out-of-band bound
+                args[2][:, :Lq] = args[0]
+                args[3] = args[1].clone()
+            before = dict(sw_cuda.ADAPTIVE_BRANCHES)
+            got = sw_cuda.extend_batch_adaptive(*args, band=w, zdrop=100)
+            moved = [k for k in before
+                     if sw_cuda.ADAPTIVE_BRANCHES[k] != before[k]]
+            if moved == [branch]:
+                break
+        else:
+            raise AssertionError(f"could not force adaptive branch {branch}")
+        want = extend_batch(*args, band=w, zdrop=100)
+        err = max_abs_diff(got, want, K1_KEYS)
+        if err:
+            raise AssertionError(f"adaptive {branch}: differs from "
+                                 f"extend_batch(band={w}) (max |diff| {err})")
+        log(f"K1 adaptive branch {branch}: equal to extend_batch(band={w}) "
+            "(tolerance 0)")
+
+
+def bound_fields(bounds) -> dict:
+    """bound_ms (mean over the calls, as ms is) and bound_by (what bounds
+    the call with the largest bound)."""
+    return dict(bound_ms=float(np.mean([b for b, _ in bounds])),
+                bound_by=max(bounds)[1])
+
+
+# ---------------------------------------------------------------------------
+# recording the kernels' main-path inputs
+# ---------------------------------------------------------------------------
+
+class Recorder:
+    """Wraps the two kernel launchers to keep each call's inputs."""
+
+    def __init__(self):
+        self.k1: list = []
+        self.k2: list = []
+        self._orig = (sw_cuda.extend_batch_banded_cuda,
+                      fm_cuda.smem_machine_cuda)
+
+    def __enter__(self):
+        o1, o2 = self._orig
+
+        def k1(*a, **kw):
+            self.k1.append((tuple(x.clone() for x in a[:5]), a[5:], kw))
+            return o1(*a, **kw)
+
+        def k2(fm, *a, **kw):
+            self.k2.append((fm, tuple(x.clone() if torch.is_tensor(x) else x
+                                      for x in a), kw))
+            return o2(fm, *a, **kw)
+
+        sw_cuda.extend_batch_banded_cuda = k1
+        fm_cuda.smem_machine_cuda = k2
+        return self
+
+    def __exit__(self, *exc):
+        sw_cuda.extend_batch_banded_cuda, fm_cuda.smem_machine_cuda = \
+            self._orig
+
+
+def k1_call_kwargs(rec):
+    args, pos, kw = rec
+    names = ("o_del", "e_del", "o_ins", "e_ins", "match", "mismatch",
+             "zdrop", "band")
+    kw = dict(zip(names, pos), **kw)
+    return args, kw
+
+
+def k2_call_kwargs(rec):
+    fm, a, kw = rec
+    names = ("reads", "lens", "x0", "min_intv", "active", "max_seeds",
+             "min_seed_len", "C", "max_rounds", "step_cap", "p3_seeds",
+             "p3_max_intv")
+    return fm, dict(zip(names, a), **kw)
+
+
+K2_KEYS_BASE = ("qbeg", "qend", "intv_l", "intv_sz", "n_seeds", "n_dropped")
+K2_KEYS_P3 = ("p3_qbeg", "p3_qend", "p3_intv_l", "p3_intv_sz", "p3_n")
+
+
+def k2_bound_ms(fm, kw, work) -> tuple[float, str]:
+    """Roofline bound of one K2 call (``roof_ms``) over the
+    bi-extensions and rank words these inputs need (``work`` is the
+    plain machine's ``count_work`` output)."""
+    reads = kw["reads"]
+    B = reads.shape[0]
+    nbytes = fm.blocks.numel() * 4 + reads.numel() + 4 * 4 * B + B \
+        + (4 * kw["max_seeds"] + 2) * 4 * B \
+        + (4 * kw.get("p3_seeds", 0) + 1) * 4 * B
+    ops = K2_OPS_PER_EXT * int(work["exts"].sum()) \
+        + K2_OPS_PER_WORD * int(work["rank_words"].sum())
+    return roof_ms(nbytes, ops)
+
+
+def dependent_load_ns(fm, dev, gen) -> float:
+    """ns per dependent load through a table of K2's block rows: one
+    thread chases a random single cycle over as many 48-byte rows as
+    the FM-index has (so the same L1/L2 footprint), after one pass that
+    touches every row; the slope of two chase lengths removes the
+    launch cost."""
+    rows, width = fm.blocks.shape
+    perm = gen.permutation(rows)
+    nxt = np.zeros((rows, width), np.int32)
+    nxt[perm, 0] = np.roll(perm, -1)
+    table = torch.from_numpy(nxt).to(dev)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    start = int(np.flatnonzero(perm == 0)[0])
+    fm_cuda.load_chase(table, rows, out)
+    torch.cuda.synchronize()
+    if int(out[0]) != int(perm[(start + rows) % rows]):
+        raise AssertionError("load_chase: wrong end of the chain")
+    n1, n2 = 10_000, 210_000
+    ms1 = cuda_ms(lambda: fm_cuda.load_chase(table, n1, out), 3)
+    ms2 = cuda_ms(lambda: fm_cuda.load_chase(table, n2, out), 3)
+    return 1e6 * (ms2 - ms1) / (n2 - n1)
+
+
+# ---------------------------------------------------------------------------
+# where the time goes
+# ---------------------------------------------------------------------------
+
+class StageTimer:
+    """Times the pipeline's stages on the host clock, synchronising the
+    card around each call (a diagnostic run: it removes any overlap)."""
+
+    TARGETS = (   # (module, class or None, function, label)
+        ("seqlib_tpu_torch.align.device_pipeline", None, "seed_and_locate",
+         "seed: K2 + re-seed + SA locate"),
+        ("seqlib_tpu_torch.align.device_pipeline", None, "chain_device",
+         "chain (plain torch)"),
+        ("seqlib_tpu_torch.align.device_pipeline", None, "extend_chains",
+         "extend: K1 (adaptive) + windows"),
+        ("seqlib_tpu_torch.align.device_full", None, "global_and_traceback",
+         "global DP + traceback (plain torch)"),
+        ("seqlib_tpu_torch.align.aligner", "BWAAligner",
+         "_hits_cols_from_full", "host: fetch, MAPQ, columns"),
+        ("seqlib_tpu_torch.native", None, "bam_encode_hits",
+         "host: native SAM emission"),
+    )
+
+    def __init__(self):
+        self.ms: dict[str, float] = {}
+        self.calls: dict[str, int] = {}
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+        for mod, cls, attr, label in self.TARGETS:
+            owner = importlib.import_module(mod)
+            if cls:
+                owner = getattr(owner, cls)
+            orig = getattr(owner, attr)
+            self._saved.append((owner, attr, orig))
+            self.ms[label] = 0.0
+            self.calls[label] = 0
+
+            def timed(*a, _orig=orig, _label=label, **kw):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = _orig(*a, **kw)
+                torch.cuda.synchronize()
+                self.ms[_label] += 1e3 * (time.time() - t0)
+                self.calls[_label] += 1
+                return out
+
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._saved):
+            setattr(owner, attr, orig)
+
+
+def profile_batch(aln, batch, card: str) -> None:
+    """torch.profiler over one batch: device kernel time, its share of
+    the batch's wall time, and the top kernels.  A profiler that records
+    no device events says so; any other profiler failure fails the run."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        aln.align_batch_bam([s for _, s in batch], [n for n, _ in batch],
+                            sam=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        log(f"profiler: no device events recorded; device busy share not "
+            f"measured [{card}]")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name: dict[str, list] = {}
+    for e in kern:
+        v = by_name.setdefault(e.name, [0.0, 0])
+        v[0] += e.time_range.elapsed_us() / 1e3
+        v[1] += 1
+    log(f"profiler: {len(kern)} kernel launches, {busy:.1f} ms of device "
+        f"time in a {1e3 * wall:.1f} ms batch (traced): device busy "
+        f"{100 * busy / (1e3 * wall):.1f}% [{card}]")
+    for k, (ms, n) in sorted(by_name.items(), key=lambda t: -t[1][0])[:10]:
+        log(f"  {k[:64]:64s} {ms:8.2f} ms x{n}")
+
+
+def main() -> int:
+    t_start = time.time()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs the port on a GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    card = smi_name_power()
+    log(f"device: {name} capability {torch.cuda.get_device_capability(0)} "
+        f"count {torch.cuda.device_count()}")
+    log(f"nvidia-smi: {card}")
+
+    # ---- build ------------------------------------------------------------
+    t0 = time.time()
+    reports = cuda_lib.build_all()
+    for k, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas[{k}]: {line.strip()}")
+    log(f"build: {time.time() - t0:.1f} s for {len(reports)} kernels")
+
+    # ---- reference, reads, index --------------------------------------------
+    t0 = time.time()
+    genome = make_genome(GENOME_BP, seed=7)
+    reads = simulate_reads(genome, BATCH * N_BATCHES, seed=11,
+                           length=READ_BP)
+    idx = FMIndex.construct([("sim_chr", genome)])
+    aln = BWAAligner(idx, device=dev)
+    log(f"reference {GENOME_BP} bp, {len(reads)} reads, index + upload "
+        f"{time.time() - t0:.1f} s")
+    batches = [reads[i:i + BATCH] for i in range(0, len(reads), BATCH)]
+
+    # ---- one batch on the card, recording kernel inputs ---------------------
+    b0 = batches[0]
+    b1 = batches[1 % len(batches)]
+    with Recorder() as rec:
+        t0 = time.time()
+        aln.align_batch_bam([s for _, s in b0], [n for n, _ in b0], sam=True)
+        torch.cuda.synchronize()
+        log(f"warm-up batch: {time.time() - t0:.2f} s; recorded "
+            f"{len(rec.k1)} K1 and {len(rec.k2)} K2 calls")
+
+    gen = np.random.default_rng(2024)
+    kernels = {}
+
+    # ---- K1 ------------------------------------------------------------------
+    M, Lq = 3072, 160
+    for w in (32, 100):
+        args = k1_inputs(gen, M, Lq, Lq + w + 1, near=0.5, empty=0.05,
+                         dev=dev)
+        for zdrop in (0, 100):
+            check_k1(args, w, zdrop, "synthetic")
+    log("K1 synthetic M=3072 L=160 w in {32,100} zdrop in {0,100}: "
+        "bit-equal (tolerance 0)")
+    check_adaptive(gen, dev)
+    k1_ms, k1_plain, k1_bound, k1_err, k1_shapes = [], [], [], 0, set()
+    for r in rec.k1:
+        args, kw = k1_call_kwargs(r)
+        got = sw_cuda.extend_batch_banded_cuda(*args, **kw)
+        want = extend_batch(*args, return_rows=True, **kw)
+        k1_err = max(k1_err, max_abs_diff(got, want, K1_KEYS))
+        k1_ms.append(cuda_ms(
+            lambda: sw_cuda.extend_batch_banded_cuda(*args, **kw), 5))
+        k1_plain.append(cuda_ms(lambda: extend_batch(*args, **kw), 1))
+        k1_bound.append(k1_bound_ms(args, kw["band"], want["rows"]))
+        k1_shapes.add((tuple(args[0].shape), tuple(args[2].shape),
+                       kw["band"]))
+    if k1_err:
+        raise AssertionError(f"K1 differs on main-path inputs ({k1_err})")
+    log(f"K1 main-path inputs ({len(rec.k1)} calls, shapes {sorted(k1_shapes)}): "
+        "bit-equal (tolerance 0)")
+    for r, ms, pm, bd in zip(rec.k1, k1_ms, k1_plain, k1_bound):
+        args, kw = k1_call_kwargs(r)
+        log(f"  K1 M={args[0].shape[0]} w={kw['band']}: {ms:.3f} ms "
+            f"(plain {pm:.1f} ms, bound {bd[0]:.4f} ms, {bd[1]}) [{card}]")
+    kernels["sw_extend"] = dict(
+        name="sw_extend_banded", route="cuda",
+        source="seqlib_tpu_torch/csrc/sw_extend.cu",
+        replaces="seqlib_tpu/ops/sw_pallas.py:174",
+        max_abs_err=k1_err, ms=float(np.mean(k1_ms)),
+        plain_ms=float(np.mean(k1_plain)), library_ms=None,
+        **bound_fields(k1_bound))
+
+    # ---- K2 ------------------------------------------------------------------
+    load_ns = dependent_load_ns(rec.k2[0][0], dev, gen)
+    log(f"dependent load through {rec.k2[0][0].blocks.shape[0]} block rows "
+        f"(one-thread chase, __ldg): {load_ns:.1f} ns [{card}]")
+    k2_ms, k2_plain, k2_bound, k2_err = [], [], [], 0
+    for r in rec.k2:
+        fm, kw = k2_call_kwargs(r)
+        keys = K2_KEYS_BASE + (K2_KEYS_P3 if kw.get("p3_seeds") else ())
+        got = fm_cuda.smem_machine_cuda(fm, **kw)
+        t0 = time.time()
+        want = _smem_machine(fm, **kw)
+        torch.cuda.synchronize()
+        k2_plain.append(1e3 * (time.time() - t0))
+        k2_err = max(k2_err, max_abs_diff(got, want, keys))
+        work = _smem_machine(fm, **kw, count_work=True)
+        k2_ms.append(cuda_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw), 5))
+        k2_bound.append(k2_bound_ms(fm, kw, work))
+        n_ext = int(work["exts"].sum())
+        dep_ms = 1e-6 * load_ns * int(work["rounds"].max())
+        log(f"  K2 B={kw['reads'].shape[0]} L={kw['reads'].shape[1]} "
+            f"S={kw['max_seeds']} p3={kw.get('p3_seeds', 0)} "
+            f"cap={kw['step_cap']}: {k2_ms[-1]:.3f} ms (plain "
+            f"{k2_plain[-1]:.0f} ms, bound {k2_bound[-1][0]:.4f} ms, "
+            f"{k2_bound[-1][1]}; "
+            f"dependent-load bound {dep_ms:.4f} ms) [{card}]")
+        log(f"    work: mean steps {float(work['steps'].float().mean()):.1f}, "
+            f"{n_ext} bi-extensions, "
+            f"{int(work['rank_words'].sum()) / max(2 * n_ext, 1):.2f} words "
+            f"per rank, longest lane {int(work['rounds'].max())} dependent "
+            "rounds")
+    if k2_err:
+        raise AssertionError(f"K2 differs on main-path inputs ({k2_err})")
+    # a step cap that truncates lanes: n_dropped must agree too
+    fm, kw = k2_call_kwargs(rec.k2[0])
+    kw = dict(kw, step_cap=40)
+    got = fm_cuda.smem_machine_cuda(fm, **kw)
+    want = _smem_machine(fm, **kw)
+    keys = K2_KEYS_BASE + (K2_KEYS_P3 if kw.get("p3_seeds") else ())
+    if max_abs_diff(got, want, keys) or int(want["n_dropped"].sum()) == 0:
+        raise AssertionError("K2 truncating step cap: mismatch or no "
+                             "truncated lane")
+    log(f"K2 main-path inputs ({len(rec.k2)} calls: collect + pass 3, "
+        "re-seed) and a truncating step cap: bit-equal (tolerance 0)")
+    kernels["smem_machine"] = dict(
+        name="smem_machine", route="cuda",
+        source="seqlib_tpu_torch/csrc/smem_machine.cu",
+        replaces="seqlib_tpu/ops/fm_pallas.py:77",
+        max_abs_err=k2_err, ms=float(np.mean(k2_ms)),
+        plain_ms=float(np.mean(k2_plain)), library_ms=None,
+        **bound_fields(k2_bound))
+
+    # ---- main path -------------------------------------------------------------
+    class Read:
+        __slots__ = ("name", "seq")
+
+        def __init__(self, n, s):
+            self.name, self.seq = n, s
+
+    stream = [Read(n, s) for n, s in reads]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    outs = list(aln.align_stream_bam(iter(stream), batch_size=BATCH,
+                                     sam=True))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    n_reads = sum(len(c) for c, _, _ in outs)
+    log(f"main path: {n_reads} reads in {len(outs)} batches through "
+        f"align_stream_bam on {name}: {wall:.2f} s = "
+        f"{n_reads / wall:.0f} reads/s [{card}]")
+    log(f"launches on the main path: {launches} "
+        f"(per batch: { {k: v / len(outs) for k, v in launches.items()} })")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the main "
+                                 "path")
+    if n_reads != len(reads):
+        raise AssertionError("the stream lost reads")
+    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.0f}"
+        f" MiB [{card}]")
+
+    sam_all = "".join(p.decode() for _, p, _ in outs)
+    ok, with_primary = placement_rate(sam_all)
+    rate = ok / len(reads)
+    log(f"placement: {ok}/{len(reads)} reads ({100 * rate:.2f}%) have their "
+        f"primary within 5 bp of the simulated position; {with_primary} "
+        "have a primary")
+    if rate < 0.98:
+        raise AssertionError(f"placement rate {rate:.4f} < 0.98")
+
+    t0 = time.time()
+    cpu = BWAAligner(idx, device="cpu")
+    c_payload, c_counts = cpu.align_batch_bam(
+        [s for _, s in b0], [n for n, _ in b0], sam=True)
+    _, g_payload, g_counts = outs[0]
+    if c_payload != g_payload or not np.array_equal(c_counts, g_counts):
+        raise AssertionError("first batch: GPU and CPU SAM differ")
+    log(f"first batch: GPU SAM == CPU SAM byte for byte ({len(g_payload)} "
+        f"bytes, {int(g_counts.sum())} records; CPU run "
+        f"{time.time() - t0:.1f} s)")
+
+    # ---- where one batch's time goes ------------------------------------------
+    with StageTimer() as st:
+        t0 = time.time()
+        aln.align_batch_bam([s for _, s in b1], [n for n, _ in b1], sam=True)
+        torch.cuda.synchronize()
+        wall_b = time.time() - t0
+    log(f"stages of one {BATCH}-read batch (host clock, synchronised; "
+        f"{1e3 * wall_b:.1f} ms in all) [{card}]:")
+    for k, v in st.ms.items():
+        log(f"  {k:34s} {v:8.1f} ms x{st.calls[k]}")
+    profile_batch(aln, b1, card)
+
+    for k, v in kernels.items():
+        v["launches"] = int(launches[k])
+    kl = [dict(name=v["name"], route=v["route"], source=v["source"],
+               replaces=v["replaces"], launches=v["launches"],
+               max_abs_err=v["max_abs_err"], ms=v["ms"],
+               plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+               bound_by=v["bound_by"], library_ms=v["library_ms"])
+          for v in kernels.values()]
+    log("kernels: " + ", ".join(
+        f"{v['name']} launches={v['launches']} equal={v['max_abs_err'] == 0}"
+        f" ms={v['ms']:.3f}" for v in kl))
+    log(f"total {time.time() - t_start:.1f} s")
+    print(json.dumps({"kernels": kl}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,35 @@
+"""Sequence encoding tables (counterpart of seqlib_tpu/core/seq.py).
+
+* nt4 code: A=0 C=1 G=2 T=3, anything else 4 (N) — the alphabet of the
+  FM-index and every DP kernel.
+* ``revcomp`` complements A/C/G/T (either case) and keeps every other
+  byte, then reverses.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+NT4_TABLE = np.full(256, 4, dtype=np.uint8)
+for _i, _b in enumerate(b"ACGT"):
+    NT4_TABLE[_b] = _i
+    NT4_TABLE[ord(chr(_b).lower())] = _i
+
+COMPLEMENT_TABLE = np.arange(256, dtype=np.uint8)
+for _a, _b in [(b"A", b"T"), (b"C", b"G"), (b"G", b"C"), (b"T", b"A"),
+               (b"a", b"t"), (b"c", b"g"), (b"g", b"c"), (b"t", b"a"),
+               (b"N", b"N"), (b"n", b"n")]:
+    COMPLEMENT_TABLE[_a[0]] = _b[0]
+
+
+def encode_nt4(seq: str | bytes) -> np.ndarray:
+    """ASCII sequence -> nt4 codes (uint8 array)."""
+    if isinstance(seq, str):
+        seq = seq.encode()
+    return NT4_TABLE[np.frombuffer(seq, dtype=np.uint8)]
+
+
+def revcomp(seq: str) -> str:
+    """Reverse complement of an ASCII sequence."""
+    arr = np.frombuffer(seq.encode(), dtype=np.uint8)
+    return COMPLEMENT_TABLE[arr][::-1].tobytes().decode()

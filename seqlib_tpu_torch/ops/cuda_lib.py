@@ -1,0 +1,121 @@
+"""Build, load and count the hand-written CUDA kernels of the port.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`` into ``seqlib_tpu_torch/build/lib<name>.so`` at first use,
+then loaded with ctypes: pointers go in as ``c_void_p``, the stream is
+PyTorch's current stream, and every C entry returns
+``cudaGetLastError()``.  ``build_all`` starts one nvcc per source at
+once.  ``LAUNCHES`` counts kernel launches per wrapper; it is the
+evidence that a run went through a kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+
+from ..native import BUILD_DIR
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# C signatures (argument types) of each library's entry points
+SIGNATURES = {
+    "sw_extend": {
+        "sw_extend_banded": [_VP] * 6 + [_CI] * 11 + [_VP],
+        "sw_extend_max_band": [],
+    },
+    "smem_machine": {
+        "smem_machine": [_VP] * 6 + [_CI] * 3 + [ctypes.POINTER(_CI)]
+        + [_CI] * 7 + [_VP] * 11 + [_VP],
+        "smem_machine_max_stack": [],
+        "smem_load_chase": [_VP, _CI, _CI, _VP, _VP],
+    },
+}
+KERNELS = tuple(SIGNATURES)
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("seqlib_tpu_torch: nvcc not found; the CUDA kernels "
+                       "are built on the machine with the GPU")
+
+
+def _so_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _start_build(name: str):
+    """Start nvcc for one source; returns (Popen, tmp path) or None when
+    the library is already up to date."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    so = _so_path(name)
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", tmp, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT), tmp
+
+
+def _finish_build(name: str, job) -> str:
+    """Wait for nvcc; install the library; return nvcc's report."""
+    proc, tmp = job
+    out = proc.communicate(timeout=900)[0].decode(errors="replace")
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, _so_path(name))
+    return out
+
+
+def build_all() -> dict[str, str]:
+    """Build every kernel library in parallel; returns nvcc's
+    ``-Xptxas -v`` report per kernel built now ("" if up to date)."""
+    jobs = {n: _start_build(n) for n in KERNELS}
+    return {n: _finish_build(n, job) if job is not None else ""
+            for n, job in jobs.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of one kernel library (built on first use)."""
+    lib = _libs.get(name)
+    if lib is None:
+        job = _start_build(name)
+        if job is not None:
+            _finish_build(name, job)
+        lib = ctypes.CDLL(_so_path(name))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _CI
+        _libs[name] = lib
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError {rc})")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

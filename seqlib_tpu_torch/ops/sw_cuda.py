@@ -1,0 +1,139 @@
+"""Kernel K1: banded seed extension on CUDA, and the adaptive-band wrapper
+around it (counterpart of seqlib_tpu/ops/sw_pallas.py).
+
+``extend_batch_banded`` launches ``csrc/sw_extend.cu`` on CUDA tensors
+and runs the plain version ``ops.sw.extend_batch(band=...)`` on CPU
+tensors.  ``extend_batch_adaptive`` is the production extension: a
+narrow first pass, a provably safe acceptance test, and a full-band
+rerun of the rest; it equals ``extend_batch(band=band)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_lib
+from .sw import extend_batch
+
+KERNEL = "sw_extend"
+
+# which branch each adaptive call took (tests check all three run)
+ADAPTIVE_BRANCHES = {"narrow_only": 0, "compact_rerun": 0, "full_rerun": 0,
+                     "full_band": 0}
+
+
+def extend_batch_banded(query, qlen, target, tlen, h0,
+                        o_del: int = 6, e_del: int = 1,
+                        o_ins: int = 6, e_ins: int = 1,
+                        match: int = 1, mismatch: int = 4,
+                        zdrop: int = 0, band: int = 100):
+    """``extend_batch(band=band)``: kernel K1 on CUDA, plain on CPU."""
+    if band <= 0:
+        raise ValueError("extend_batch_banded: band must be > 0")
+    if not query.is_cuda:
+        return extend_batch(query, qlen, target, tlen, h0, o_del=o_del,
+                            e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+                            match=match, mismatch=mismatch, zdrop=zdrop,
+                            band=band)
+    return extend_batch_banded_cuda(query, qlen, target, tlen, h0,
+                                    o_del, e_del, o_ins, e_ins, match,
+                                    mismatch, zdrop, band)
+
+
+def extend_batch_banded_cuda(query, qlen, target, tlen, h0,
+                             o_del: int = 6, e_del: int = 1,
+                             o_ins: int = 6, e_ins: int = 1,
+                             match: int = 1, mismatch: int = 4,
+                             zdrop: int = 0, band: int = 100):
+    """Launch kernel K1 (raises on CPU tensors or unsupported shapes)."""
+    dev = query.device
+    if dev.type != "cuda" or target.device != dev:
+        raise ValueError("extend_batch_banded_cuda: query and target must "
+                         "be on the same CUDA device")
+    lib = cuda_lib.load(KERNEL)
+    if not 0 < band <= lib.sw_extend_max_band():
+        raise ValueError(f"extend_batch_banded_cuda: band {band} not in "
+                         f"1..{lib.sw_extend_max_band()}")
+    if e_del < 0 or e_ins < 0 or o_del < 0 or o_ins < 0:
+        raise ValueError("extend_batch_banded_cuda: negative gap penalty")
+    M, Lq = query.shape
+    if target.shape[0] != M:
+        raise ValueError("extend_batch_banded_cuda: batch mismatch")
+    Lt = target.shape[1]
+    q8 = query.to(torch.int8).contiguous()
+    t8 = target.to(torch.int8).contiguous()
+
+    def lane(v):
+        v = torch.as_tensor(v, device=dev)
+        if v.shape != (M,):
+            raise ValueError("extend_batch_banded_cuda: per-lane input of "
+                             f"shape {tuple(v.shape)}, expected ({M},)")
+        return v.to(torch.int32).contiguous()
+
+    ql, tl, hh = lane(qlen), lane(tlen), lane(h0)
+    out = torch.empty((5, M), dtype=torch.int32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    rc = lib.sw_extend_banded(
+        vp(q8.data_ptr()), vp(ql.data_ptr()), vp(t8.data_ptr()),
+        vp(tl.data_ptr()), vp(hh.data_ptr()), vp(out.data_ptr()),
+        ci(M), ci(Lq), ci(Lt), ci(band), ci(o_del), ci(e_del), ci(o_ins),
+        ci(e_ins), ci(match), ci(mismatch), ci(zdrop),
+        cuda_lib.stream_ptr(dev))
+    cuda_lib.check(rc, KERNEL)
+    cuda_lib.LAUNCHES[KERNEL] += 1
+    return dict(score=out[0], qle=out[1], tle=out[2], gscore=out[3],
+                gtle=out[4])
+
+
+def extend_batch_adaptive(query, qlen, target, tlen, h0,
+                          o_del: int = 6, e_del: int = 1,
+                          o_ins: int = 6, e_ins: int = 1,
+                          match: int = 1, mismatch: int = 4,
+                          zdrop: int = 0, band: int = 100,
+                          w1: int = 32, rerun_cap: int = 256):
+    """Adaptive-band extension, equal to ``extend_batch(band=band)``.
+
+    Pass 1 runs the narrow band ``w1``.  A lane is band-invariant when
+    its pass-1 score and gscore both exceed the best score of any path
+    that leaves the narrow band,
+
+        UB = h0 + match*qlen - min(o_del + e_del*(w1+1),
+                                   o_ins + e_ins*(w1+1)),
+
+    or when qlen == 0.  Up to ``rerun_cap`` failing lanes are gathered
+    into a full-band rerun; more than that rerun the whole batch.  A
+    z-drop within the gap bound (0 < zdrop <= that min) could stop a
+    full-band lane on a peak outside the narrow band, so such calls go
+    straight to the full band."""
+    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+              match=match, mismatch=mismatch, zdrop=zdrop)
+    gap_pen = min(o_del + e_del * (w1 + 1), o_ins + e_ins * (w1 + 1))
+    if band <= w1 or 0 < zdrop <= gap_pen:
+        ADAPTIVE_BRANCHES["full_band"] += 1
+        return extend_batch_banded(query, qlen, target, tlen, h0,
+                                   band=band, **kw)
+    r1 = extend_batch_banded(query, qlen, target, tlen, h0, band=w1, **kw)
+    qlen32 = qlen.to(torch.int32)
+    ub = h0.to(torch.int32) + match * qlen32 - gap_pen
+    ok = ((r1["score"] > ub) & (r1["gscore"] > ub)) | (qlen32 == 0)
+    bad = torch.nonzero(~ok).flatten()
+    n_bad = int(bad.numel())
+    B = query.shape[0]
+    if n_bad == 0:
+        ADAPTIVE_BRANCHES["narrow_only"] += 1
+        return r1
+    if n_bad > min(rerun_cap, B):
+        ADAPTIVE_BRANCHES["full_rerun"] += 1
+        return extend_batch_banded(query, qlen, target, tlen, h0,
+                                   band=band, **kw)
+    ADAPTIVE_BRANCHES["compact_rerun"] += 1
+    r2 = extend_batch_banded(query[bad], qlen[bad], target[bad], tlen[bad],
+                             h0[bad], band=band, **kw)
+    out = {}
+    for k, v in r1.items():
+        v = v.clone()
+        v[bad] = r2[k]
+        out[k] = v
+    return out

@@ -1,0 +1,109 @@
+"""Seeded synthetic reference and short-read simulator (numpy only).
+
+``make_genome`` builds one random contig with planted exact repeat
+pairs, 1%-divergent copies and a tandem block (the repeat classes of
+the repository's hermetic golden corpus, scaled up).  ``simulate_reads``
+draws wgsim-like single-end reads: uniform positions on both strands,
+substitutions at a fixed rate, a share with a 1-4 bp insertion or
+deletion, and a share with a random soft-clip flank.  Each read name
+carries its truth: ``<prefix><i>_<pos>_<strand>`` with ``pos`` the
+0-based leftmost reference base of the read's aligned part.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def make_genome(length: int = 4_600_000, seed: int = 7, n_segments: int = 4,
+                seg_len: int = 5000, tandem_unit: int = 60,
+                tandem_copies: int = 50) -> str:
+    """Random contig with, per segment, two exact copies and one copy
+    at 1% divergence, plus one tandem block."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, length).astype(np.uint8)
+    stride = length // (3 * n_segments + 2)
+    slot = 1
+    for _ in range(n_segments):
+        seg = rng.integers(0, 4, seg_len).astype(np.uint8)
+        div = seg.copy()
+        nmut = seg_len // 100
+        muts = rng.choice(seg_len, nmut, replace=False)
+        div[muts] = (div[muts] + rng.integers(1, 4, nmut)) % 4
+        for copy in (seg, seg, div):
+            g[slot * stride:slot * stride + seg_len] = copy
+            slot += 1
+    unit = rng.integers(0, 4, tandem_unit).astype(np.uint8)
+    t0 = slot * stride
+    g[t0:t0 + tandem_unit * tandem_copies] = np.tile(unit, tandem_copies)
+    return BASES[g].tobytes().decode()
+
+
+_COMP = np.zeros(256, np.uint8)
+_COMP[list(b"ACGT")] = list(b"TGCA")
+
+
+def _rc(b: np.ndarray) -> np.ndarray:
+    return _COMP[b][::-1]
+
+
+def simulate_reads(genome: str, n: int, seed: int = 11, length: int = 150,
+                   sub_rate: float = 0.002, indel_frac: float = 0.08,
+                   clip_frac: float = 0.04, prefix: str = "sim"):
+    """n reads as (name, seq) pairs; see the module docstring."""
+    rng = np.random.default_rng(seed)
+    g = np.frombuffer(genome.encode(), np.uint8)
+    span = length + 8
+    starts = rng.integers(0, g.size - span, n)
+    rev = rng.random(n) < 0.5
+    kind = rng.random(n)
+    reads = []
+    for i in range(n):
+        p = int(starts[i])
+        lead = 0                 # bases before the aligned part (fwd frame)
+        if kind[i] < indel_frac:
+            k = int(rng.integers(1, 5))
+            cut = int(rng.integers(40, length - 40))
+            if rng.random() < 0.5:                        # deletion
+                frag = np.concatenate([g[p:p + cut],
+                                       g[p + cut + k:p + length + k]])
+            else:                                          # insertion
+                ins = BASES[rng.integers(0, 4, k)]
+                frag = np.concatenate([g[p:p + cut], ins,
+                                       g[p + cut:p + length - k]])
+        else:
+            frag = g[p:p + length].copy()
+            if kind[i] < indel_frac + clip_frac:
+                c = int(rng.integers(20, 41))
+                frag[:c] = BASES[rng.integers(0, 4, c)]
+                lead = c
+        frag = frag.copy()
+        hit = rng.random(length) < sub_rate
+        if hit.any():
+            idx = np.flatnonzero(hit)
+            cur = np.searchsorted(BASES, frag[idx])
+            frag[idx] = BASES[(cur + rng.integers(1, 4, idx.size)) % 4]
+        if rev[i]:
+            frag = _rc(frag)
+        name = f"{prefix}{i}_{p + lead}_{'-' if rev[i] else '+'}"
+        reads.append((name, frag.tobytes().decode()))
+    return reads
+
+
+def placement_rate(sam_text: str, tol: int = 5) -> tuple[int, int]:
+    """(reads whose primary record lies within ``tol`` bp of the truth
+    in its name, on the right strand; reads with a primary record)."""
+    ok = total = 0
+    for line in sam_text.splitlines():
+        f = line.split("\t", 4)
+        flag = int(f[1])
+        if flag & 0x904:          # secondary, supplementary, unmapped
+            continue
+        total += 1
+        _, pos, strand = f[0].rsplit("_", 2)
+        if abs(int(f[3]) - 1 - int(pos)) <= tol \
+                and bool(flag & 16) == (strand == "-"):
+            ok += 1
+    return ok, total

@@ -1,0 +1,129 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+
+Run on a machine with a CUDA GPU (``--noconftest``: the suite's
+conftest imports jax, which the GPU machine need not have):
+
+    python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
+
+Every test decides inside itself whether a card is present and skips
+without one, so every test worker collects the same tests.  Outputs are
+integers and must be bit-equal (tolerance 0).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from seqlib_tpu_torch.align import BWAAligner
+from seqlib_tpu_torch.core.seq import encode_nt4
+from seqlib_tpu_torch.index import FMIndex
+from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, sw_cuda
+from seqlib_tpu_torch.ops.fm import DeviceFMIndex, _smem_machine, smem_machine
+from seqlib_tpu_torch.ops.sw import extend_batch
+from seqlib_tpu_torch.sim import make_genome, simulate_reads
+
+pytestmark = pytest.mark.gpu
+
+KEYS = ("score", "qle", "tle", "gscore", "gtle")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def genome():
+    return make_genome(200_000, seed=3, n_segments=2, seg_len=2000)
+
+
+def _lanes(seed, M, Lq, Lt, dev):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 5, (M, Lq)).astype(np.int8)
+    t = rng.integers(0, 5, (M, Lt)).astype(np.int8)
+    ql = rng.integers(0, Lq + 1, M).astype(np.int32)
+    tl = rng.integers(0, Lt + 1, M).astype(np.int32)
+    h0 = rng.integers(1, 60, M).astype(np.int32)
+    for m in range(0, M, 2):                     # near-identical half
+        n = int(ql[m])
+        t[m, :n] = q[m, :n]
+        tl[m] = max(tl[m], n)
+        for p in rng.integers(0, max(n, 1), 2):
+            t[m, p] = (t[m, p] + 1) % 4
+    return [torch.from_numpy(a).to(dev) for a in (q, ql, t, tl, h0)]
+
+
+@pytest.mark.parametrize("w,zdrop", [(32, 0), (32, 100), (100, 0),
+                                     (100, 100), (8, 23)])
+def test_k1_equals_plain(cuda, w, zdrop):
+    args = _lanes(w + zdrop, 512, 160, 160 + w + 1, cuda)
+    n0 = cuda_lib.LAUNCHES["sw_extend"]
+    got = sw_cuda.extend_batch_banded(*args, band=w, zdrop=zdrop)
+    assert cuda_lib.LAUNCHES["sw_extend"] == n0 + 1
+    want = extend_batch(*args, band=w, zdrop=zdrop)
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_k1_adaptive_equals_full_band(cuda):
+    args = _lanes(5, 512, 160, 261, cuda)
+    got = sw_cuda.extend_batch_adaptive(*args, band=100, zdrop=100)
+    want = extend_batch(*args, band=100, zdrop=100)
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("p3_seeds,step_cap,max_rounds", [
+    (8, 656, 160), (0, 656, 160), (8, 60, 160), (0, 328, 1)])
+def test_k2_equals_plain(cuda, genome, p3_seeds, step_cap, max_rounds):
+    fm = DeviceFMIndex.from_host(FMIndex.construct([("rep1", genome)]),
+                                 device=cuda)
+    reads = [s for _, s in simulate_reads(genome, 256, seed=4)]
+    enc = np.full((len(reads), 160), 4, np.uint8)
+    lens = np.zeros(len(reads), np.int32)
+    for i, s in enumerate(reads):
+        enc[i, :len(s)] = encode_nt4(s)
+        lens[i] = len(s)
+    rng = np.random.default_rng(1)
+    B = len(reads)
+    x0 = rng.integers(0, 150, B) if max_rounds == 1 else np.zeros(B)
+    mi = rng.integers(1, 4, B) if max_rounds == 1 else np.ones(B)
+    args = [torch.from_numpy(np.asarray(a)).to(cuda) for a in
+            (enc, lens, x0.astype(np.int32), mi.astype(np.int32), lens > 0)]
+    kw = dict(max_seeds=16 if max_rounds > 1 else 4, min_seed_len=19, C=8,
+              max_rounds=max_rounds, step_cap=step_cap, p3_seeds=p3_seeds,
+              p3_max_intv=20)
+    n0 = cuda_lib.LAUNCHES["smem_machine"]
+    got = smem_machine(fm, *args, **kw)
+    assert cuda_lib.LAUNCHES["smem_machine"] == n0 + 1
+    want = _smem_machine(fm, *args, **kw)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_load_chase_follows_the_chain(cuda):
+    rows = 5000
+    perm = np.random.default_rng(2).permutation(rows)
+    nxt = np.zeros((rows, 12), np.int32)
+    nxt[perm, 0] = np.roll(perm, -1)
+    out = torch.zeros(1, dtype=torch.int32, device=cuda)
+    n0 = cuda_lib.LAUNCHES["smem_machine"]
+    fm_cuda.load_chase(torch.from_numpy(nxt).to(cuda), 777, out)
+    start = int(np.flatnonzero(perm == 0)[0])
+    assert int(out[0]) == int(perm[(start + 777) % rows])
+    assert cuda_lib.LAUNCHES["smem_machine"] == n0
+
+
+def test_aligner_gpu_equals_cpu(cuda, genome):
+    corpus = simulate_reads(genome, 200, seed=5)
+    idx = FMIndex.construct([("rep1", genome)])
+    seqs, names = [s for _, s in corpus], [n for n, _ in corpus]
+    cuda_lib.reset_launches()
+    g = BWAAligner(idx, device=cuda).align_batch_bam(seqs, names, sam=True)
+    assert all(v > 0 for v in cuda_lib.LAUNCHES.values())
+    c = BWAAligner(idx, device="cpu").align_batch_bam(seqs, names, sam=True)
+    assert g[0] == c[0]
+    assert np.array_equal(g[1], c[1])

@@ -1,0 +1,174 @@
+"""The port's affine DP against the JAX package, and the adaptive-band
+wrapper's three branches.
+
+``extend_batch`` (the plain version of kernel K1) and ``global_batch``
+/ ``global_and_traceback`` get the same numpy inputs as their JAX
+counterparts; all outputs are integers and must be exactly equal.  The
+strict-band scalar oracle of tests/test_sw_banded.py pins the banded
+score independently.  On CPU tensors ``extend_batch_adaptive`` runs the
+plain banded DP in each pass, so these tests drive all of its branches
+and hold it to ``extend_batch(band=...)``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seqlib_tpu.align import device_pipeline as jdp
+from seqlib_tpu.ops import sw as jsw
+from seqlib_tpu_torch.align import device_pipeline as tdp
+from seqlib_tpu_torch.ops import sw as tsw
+from seqlib_tpu_torch.ops import sw_cuda
+from test_sw_banded import _scalar_banded
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes at once: one intra-op
+    thread per process keeps torch's CPU thread pools from
+    oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+KEYS = ("score", "qle", "tle", "gscore", "gtle")
+
+
+def _lanes(seed, M, Lq, Lt, near=0.5, empty=0.05):
+    """Random lanes, near-identical lanes (few substitutions and an
+    occasional short indel) and qlen = 0 lanes."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 5, (M, Lq)).astype(np.int8)
+    t = rng.integers(0, 5, (M, Lt)).astype(np.int8)
+    ql = rng.integers(1, Lq + 1, M).astype(np.int32)
+    tl = np.minimum(ql + rng.integers(0, Lt - Lq + 1, M), Lt).astype(np.int32)
+    h0 = rng.integers(1, 60, M).astype(np.int32)
+    kind = rng.random(M)
+    for m in np.flatnonzero(kind < near):
+        n = int(ql[m])
+        t[m, :n] = q[m, :n]
+        for p in rng.integers(0, n, int(rng.integers(0, 4))):
+            t[m, p] = (t[m, p] + 1) % 4
+        if rng.random() < 0.3:
+            cut = int(rng.integers(1, max(n, 2)))
+            t[m, cut:] = np.roll(t[m, cut:], int(rng.integers(-4, 5)))
+    ql[kind > 1.0 - empty] = 0
+    return q, ql, t, tl, h0
+
+
+def _both(fn_j, fn_t, arrays, **kw):
+    want = fn_j(*(jnp.asarray(a) for a in arrays), **kw)
+    got = fn_t(*(torch.from_numpy(a) for a in arrays), **kw)
+    return want, got
+
+
+@pytest.mark.parametrize("band,zdrop", [
+    (0, 0), (0, 100), (8, 0), (12, 23), (32, 100), (100, 0), (100, 100),
+])
+def test_extend_batch_equals_jax(band, zdrop):
+    Lq = 96 if band >= 32 else 48
+    arrays = _lanes(band * 100 + zdrop, 96, Lq, Lq + max(band, 16) + 1)
+    want, got = _both(jsw.extend_batch, tsw.extend_batch, arrays,
+                      band=band, zdrop=zdrop)
+    for k in KEYS:
+        assert np.array_equal(np.asarray(want[k]), got[k].numpy()), k
+
+
+def test_extend_batch_vs_scalar_oracle():
+    q, ql, t, tl, h0 = _lanes(3, 16, 40, 64, near=0.5, empty=0.0)
+    w = 10
+    got = tsw.extend_batch(*(torch.from_numpy(a) for a in (q, ql, t, tl, h0)),
+                           band=w)
+    for b in range(16):
+        want, _ = _scalar_banded(q[b], t[b], int(ql[b]), int(tl[b]),
+                                 int(h0[b]), 6, 1, 6, 1, 1, 4, w)
+        assert int(got["score"][b]) == want, b
+
+
+@pytest.mark.parametrize("branch,near,zdrop", [
+    ("narrow_only", 1.0, 100),
+    ("compact_rerun", 1.0, 100),
+    ("full_rerun", 0.0, 100),
+    ("full_band", 0.5, 20),     # 0 < zdrop <= min gap bound: no narrow pass
+])
+def test_adaptive_branches(branch, near, zdrop):
+    """Each branch of extend_batch_adaptive returns exactly
+    extend_batch(band=100), the JAX package's CPU extension."""
+    M, Lq, w = 64, 96, 100
+    q, ql, t, tl, h0 = _lanes(7, M, Lq, Lq + w + 1, near=near, empty=0.05)
+    if near == 1.0:                                 # exact lanes, no N
+        q = np.where(q == 4, 0, q).astype(np.int8)
+        t[:, :Lq] = q
+        tl = ql.copy()
+    if branch == "compact_rerun":                   # 8 lanes fail pass 1
+        t[:8] = np.random.default_rng(8).integers(0, 4, t[:8].shape)
+        ql[:8] = Lq
+    before = dict(sw_cuda.ADAPTIVE_BRANCHES)
+    arrays = (q, ql, t, tl, h0)
+    got = sw_cuda.extend_batch_adaptive(
+        *(torch.from_numpy(a) for a in arrays), band=w, zdrop=zdrop,
+        rerun_cap=16)
+    moved = [k for k in before if sw_cuda.ADAPTIVE_BRANCHES[k] != before[k]]
+    assert moved == [branch], moved
+    plain = tsw.extend_batch(*(torch.from_numpy(a) for a in arrays),
+                             band=w, zdrop=zdrop)
+    want = jsw.extend_batch(*(jnp.asarray(a) for a in arrays), band=w,
+                            zdrop=zdrop)
+    for k in KEYS:
+        assert torch.equal(got[k], plain[k]), k
+        assert np.array_equal(np.asarray(want[k]), got[k].numpy()), k
+
+
+def test_global_batch_and_traceback_equal_jax():
+    rng = np.random.default_rng(11)
+    M, Lq, Lt = 48, 64, 96
+    q = rng.integers(0, 4, (M, Lq)).astype(np.uint8)
+    t = np.full((M, Lt), 4, np.uint8)
+    ql = rng.integers(0, Lq + 1, M).astype(np.int32)
+    tl = np.zeros(M, np.int32)
+    for m in range(M):
+        s = list(q[m, :ql[m]])
+        for _ in range(int(rng.integers(0, 4))):          # edits
+            if not s:
+                break
+            p = int(rng.integers(0, len(s)))
+            op = rng.integers(0, 3)
+            if op == 0:
+                s[p] = (s[p] + 1) % 4
+            elif op == 1:
+                del s[p]
+            else:
+                s.insert(p, int(rng.integers(0, 4)))
+        s = s[:Lt]
+        t[m, :len(s)] = s
+        tl[m] = len(s)
+    q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
+    arrays = (q, ql, t, tl)
+    for band in (8, 208):
+        ws, wd = jsw.global_batch(*(jnp.asarray(a) for a in arrays),
+                                  band=band)
+        gs, gd = tsw.global_batch(*(torch.from_numpy(a) for a in arrays),
+                                  band=band)
+        assert np.array_equal(np.asarray(ws), gs.numpy())
+        assert np.array_equal(np.asarray(wd), gd.numpy())
+        want = jdp.global_and_traceback(*(jnp.asarray(a) for a in arrays),
+                                        band=band)
+        got = tdp.global_and_traceback(*(torch.from_numpy(a)
+                                         for a in arrays), band=band)
+        for a, b, name in zip(want, got, ("score", "ops", "nm")):
+            assert np.array_equal(np.asarray(a), b.numpy()), (band, name)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA launchers never run a CPU tensor (no quiet fallback)."""
+    from seqlib_tpu_torch.ops import fm_cuda
+    q, ql, t, tl, h0 = (torch.from_numpy(a)
+                        for a in _lanes(1, 4, 16, 33, near=0.5))
+    with pytest.raises(ValueError):
+        sw_cuda.extend_batch_banded_cuda(q, ql, t, tl, h0, band=16)
+    with pytest.raises(ValueError):
+        fm_cuda.smem_machine_cuda(None, q.to(torch.uint8), ql, ql, ql,
+                                  ql > 0, 4, 19, 8, 1, 40)
