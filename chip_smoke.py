@@ -6,8 +6,9 @@ Phases, each of which must pass (any failure exits non-zero before the
 last line is printed):
 
 1. device: name, capability, ``nvidia-smi`` name and power limit;
-2. build: both CUDA kernels from ``seqlib_tpu_torch/csrc`` (nvcc's
-   register and spill report is printed);
+2. build: every CUDA kernel library from ``seqlib_tpu_torch/csrc``, one
+   nvcc per source, all at once (nvcc's register and spill report is
+   printed);
 3. a seeded 4.6 Mbp reference (one contig with planted repeats) and
    32,768 simulated 150 bp reads; the port's FM-index and aligner;
 4. one 4096-read batch through ``align_batch_bam`` on the card, which
@@ -16,15 +17,33 @@ last line is printed):
    their plain PyTorch versions on the card, bit for bit (tolerance 0),
    on the recorded main-path inputs and on synthetic cases (random,
    near-identical and empty lanes, w in {32, 100}, zdrop in {0, 100},
-   all three branches of the adaptive-band wrapper), and timed with
-   CUDA events;
+   all three branches of the adaptive-band wrapper), and timed: device
+   time per launch of calls queued behind a sleep kernel (``ms``) and
+   ms per call with the Python wrapper, back to back (``event_ms``),
+   both with CUDA events;
 6. main path: 8 x 4096 reads through ``align_stream_bam`` on the card
    with the launch counters reset just before and read just after;
    the first batch's SAM must equal the port's CPU run byte for byte,
    and at least 98% of reads must place their primary record at the
    simulated position;
-7. numbers: reads/s, per-kernel ms and launches, peak device memory,
-   the profiler's top device ops, one JSON line of kernel numbers.
+7. numbers: reads/s, stage times and the profiler's top device ops;
+8. overflow path and object API: the 1000-read repeat corpus
+   (``sim.make_repeat_reads``) as one chunk through ``align_batch`` on
+   the card, launch counters reset just before and read just after: it
+   overflows the extension DP rows, so the batch reruns on the classic
+   path (``stats["fused_overflow_fallback"] == 1``, K1 and K2 launched);
+   what every K1 and K2 call of that run returned is held against the
+   plain version on the same inputs, tolerance 0; its SAM must equal
+   the non-``#`` lines of ``tests/golden/sam_repeat_1k.txt`` (the JAX
+   package's output) byte for byte, and ``align_batch_bam(sam=True)``
+   on the same batch must equal the records' ``to_sam`` lines;
+9. rectangle kernels K3, K4, K5 (``bench_sw.run``): each held against
+   its plain version on the card, tolerance 0, on bench.py's inputs, the
+   variant sweep's and a set of short and empty lanes, at zdrop 0 and
+   100 (K5: 100 only); then timed on the extension bench path (device
+   time per launch and per-call wrapper time, as for K1 and K2), whose
+   launches they report;
+10. one JSON line of all five kernels' numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -32,28 +51,32 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
-import subprocess
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
+from seqlib_tpu_torch import bench_sw
 from seqlib_tpu_torch.align import BWAAligner
+from seqlib_tpu_torch.bench_sw import (band_cells_needed, cuda_ms,
+                                       device_ms, max_abs_diff, roof_ms,
+                                       smi_name_power)
 from seqlib_tpu_torch.index import FMIndex
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, sw_cuda
 from seqlib_tpu_torch.ops.fm import _smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch
-from seqlib_tpu_torch.sim import make_genome, placement_rate, simulate_reads
+from seqlib_tpu_torch.sim import (make_genome, make_repeat_genome,
+                                  make_repeat_reads, placement_rate,
+                                  simulate_reads)
 
 GENOME_BP = 4_600_000
 BATCH = 4096
 N_BATCHES = 8
 READ_BP = 150
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-# int32 ALU peak: the data sheet's 67 TFLOP/s float32 counts an FMA as
-# two operations on 128 lanes per SM; Hopper has 64 INT32 lanes per SM
-INT32_OPS_PER_S = 67e12 / 4
+GOLDEN_REPEAT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "golden", "sam_repeat_1k.txt")
 K1_OPS_PER_CELL = 14               # int32 ops per band cell
 # K2's int32 operations, counted from csrc/smem_machine.cu: per BWT word
 # a rank popcounts, 7 to build the word's mask (sub, max, min, test,
@@ -71,39 +94,9 @@ def log(*a):
     print(*a, flush=True)
 
 
-def smi_name_power() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of fn() on the card (CUDA events, after one
-    warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def max_abs_diff(a: dict, b: dict, keys) -> int:
-    return max(int((a[k].to(torch.int64) - b[k].to(torch.int64))
-                   .abs().max()) if a[k].numel() else 0 for k in keys)
-
-
 # ---------------------------------------------------------------------------
 # K1: banded extension
 # ---------------------------------------------------------------------------
-
-K1_KEYS = ("score", "qle", "tle", "gscore", "gtle")
-
 
 def k1_inputs(gen: np.random.Generator, M: int, Lq: int, Lt: int,
               near: float, empty: float, dev):
@@ -132,33 +125,13 @@ def k1_inputs(gen: np.random.Generator, M: int, Lq: int, Lt: int,
     return [torch.from_numpy(x).to(dev) for x in (q, ql, t, tl, h0)]
 
 
-def k1_cells(args, w: int, rows: torch.Tensor) -> int:
-    """Band cells the DP computes for these lanes (rows = DP rows each
-    lane ran, from the plain version)."""
-    q, _, t, tl, _ = args
-    Lq, Lt = q.shape[1], t.shape[1]
-    R = torch.arange(1, Lq + 1, device=q.device)[None, :]
-    tle = torch.clamp(tl.to(torch.int64), max=Lt)[:, None]
-    live = torch.clamp(torch.minimum(R + w, tle) - torch.clamp(R - w, min=0)
-                       + 1, min=0)
-    return int((live * (R <= rows.to(torch.int64)[:, None])).sum())
-
-
-def roof_ms(nbytes: int, ops: int) -> tuple[float, str]:
-    """(max(bytes / HBM rate, int32 ops / int32 rate) in ms, which of
-    the two bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                       else "operations")
-
-
 def k1_bound_ms(args, w: int, rows) -> tuple[float, str]:
     """Roofline bound of one K1 call (``roof_ms``) over the band cells
     these lanes need."""
     q, _, t, _, _ = args
     M = q.shape[0]
     nbytes = q.numel() + t.numel() + 3 * 4 * M + 5 * 4 * M
-    ops = K1_OPS_PER_CELL * k1_cells(args, w, rows)
+    ops = K1_OPS_PER_CELL * band_cells_needed(args, w, rows)
     return roof_ms(nbytes, ops)
 
 
@@ -166,7 +139,7 @@ def check_k1(args, w: int, zdrop: int, what: str) -> None:
     kw = dict(band=w, zdrop=zdrop)
     got = sw_cuda.extend_batch_banded_cuda(*args, **kw)
     want = extend_batch(*args, **kw)
-    err = max_abs_diff(got, want, K1_KEYS)
+    err = max_abs_diff(got, want)
     if err:
         raise AssertionError(f"K1 {what} w={w} zdrop={zdrop}: kernel differs "
                              f"from plain (max |diff| {err})")
@@ -194,7 +167,7 @@ def check_adaptive(gen, dev):
         else:
             raise AssertionError(f"could not force adaptive branch {branch}")
         want = extend_batch(*args, band=w, zdrop=100)
-        err = max_abs_diff(got, want, K1_KEYS)
+        err = max_abs_diff(got, want)
         if err:
             raise AssertionError(f"adaptive {branch}: differs from "
                                  f"extend_batch(band={w}) (max |diff| {err})")
@@ -214,7 +187,8 @@ def bound_fields(bounds) -> dict:
 # ---------------------------------------------------------------------------
 
 class Recorder:
-    """Wraps the two kernel launchers to keep each call's inputs."""
+    """Wraps the two kernel launchers to keep each call's inputs and
+    what the kernel returned."""
 
     def __init__(self):
         self.k1: list = []
@@ -226,13 +200,18 @@ class Recorder:
         o1, o2 = self._orig
 
         def k1(*a, **kw):
-            self.k1.append((tuple(x.clone() for x in a[:5]), a[5:], kw))
-            return o1(*a, **kw)
+            args = tuple(x.clone() for x in a[:5])
+            out = o1(*a, **kw)
+            self.k1.append((args, a[5:], kw,
+                            {k: v.clone() for k, v in out.items()}))
+            return out
 
         def k2(fm, *a, **kw):
-            self.k2.append((fm, tuple(x.clone() if torch.is_tensor(x) else x
-                                      for x in a), kw))
-            return o2(fm, *a, **kw)
+            args = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+            out = o2(fm, *a, **kw)
+            self.k2.append((fm, args, kw,
+                            {k: v.clone() for k, v in out.items()}))
+            return out
 
         sw_cuda.extend_batch_banded_cuda = k1
         fm_cuda.smem_machine_cuda = k2
@@ -244,7 +223,7 @@ class Recorder:
 
 
 def k1_call_kwargs(rec):
-    args, pos, kw = rec
+    args, pos, kw, _ = rec
     names = ("o_del", "e_del", "o_ins", "e_ins", "match", "mismatch",
              "zdrop", "band")
     kw = dict(zip(names, pos), **kw)
@@ -252,7 +231,7 @@ def k1_call_kwargs(rec):
 
 
 def k2_call_kwargs(rec):
-    fm, a, kw = rec
+    fm, a, kw, _ = rec
     names = ("reads", "lens", "x0", "min_intv", "active", "max_seeds",
              "min_seed_len", "C", "max_rounds", "step_cap", "p3_seeds",
              "p3_max_intv")
@@ -388,6 +367,82 @@ def profile_batch(aln, batch, card: str) -> None:
         log(f"  {k[:64]:64s} {ms:8.2f} ms x{n}")
 
 
+def check_recorded(rec: Recorder, what: str) -> None:
+    """What each recorded K1 and K2 call returned on the path, held
+    against the plain version on the same inputs (tolerance 0)."""
+    k1_err = 0
+    shapes = set()
+    for r in rec.k1:
+        args, kw = k1_call_kwargs(r)
+        k1_err = max(k1_err, max_abs_diff(r[3], extend_batch(*args, **kw)))
+        shapes.add((args[0].shape[0], args[0].shape[1], args[2].shape[1],
+                    kw["band"]))
+    k2_err = 0
+    for r in rec.k2:
+        fm, kw = k2_call_kwargs(r)
+        keys = K2_KEYS_BASE + (K2_KEYS_P3 if kw.get("p3_seeds") else ())
+        k2_err = max(k2_err, max_abs_diff(r[3], _smem_machine(fm, **kw),
+                                          keys))
+    if k1_err or k2_err:
+        raise AssertionError(f"{what}: kernel differs from plain (K1 max "
+                             f"|diff| {k1_err}, K2 {k2_err})")
+    log(f"{what}: K1 ({len(rec.k1)} calls, (M, Lq, Lt, w) in "
+        f"{sorted(shapes)}) and K2 ({len(rec.k2)} calls, B = "
+        f"{sorted({r[1][0].shape[0] for r in rec.k2})}) bit-equal to their "
+        "plain versions on the path's own inputs (tolerance 0)")
+
+
+def check_overflow_path(dev, card: str) -> None:
+    """The 1000-read repeat corpus as one chunk through ``align_batch``
+    (counters reset just before, read just after): the classic rerun
+    must reproduce the JAX package's golden SAM, and the native path's
+    SAM must equal the records' ``to_sam`` lines."""
+    genome = make_repeat_genome()
+    reads = make_repeat_reads(genome)
+    idx = FMIndex.construct([("rep1", genome)])
+    aln = BWAAligner(idx, device=dev)
+    seqs, names = [s for _, s in reads], [n for n, _ in reads]
+    torch.cuda.synchronize()
+    with Recorder() as rec:
+        cuda_lib.reset_launches()
+        t0 = time.time()
+        recs = aln.align_batch(seqs, names)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+    fallback = aln.stats["fused_overflow_fallback"]
+    log(f"overflow path: {len(reads)} reads as one chunk through align_batch"
+        f" in {wall:.2f} s; fused_overflow_fallback = {fallback}; launches "
+        f"{launches} [{card}]")
+    if fallback != 1:
+        raise AssertionError(f"overflow path: fused_overflow_fallback = "
+                             f"{fallback}, expected 1")
+    for k in cuda_lib.MAIN_PATH:
+        if launches[k] <= 0:
+            raise AssertionError(f"overflow path: kernel {k} not launched")
+    check_recorded(rec, "overflow path")
+    hdr = idx.header_from_index()
+    lines = [r.to_sam(hdr) for rs in recs for r in rs]
+    with open(GOLDEN_REPEAT) as f:
+        want = [l for l in f.read().splitlines() if not l.startswith("#")]
+    if lines != want:
+        bad = next(i for i, (a, b) in enumerate(zip(lines + [""], want + [""]))
+                   if a != b)
+        raise AssertionError(f"overflow path: SAM differs from {GOLDEN_REPEAT}"
+                             f" ({len(lines)} vs {len(want)} lines; first "
+                             f"difference at line {bad})")
+    log(f"overflow path: align_batch SAM == {GOLDEN_REPEAT} byte for byte "
+        f"({len(lines)} records)")
+    payload, counts = aln.align_batch_bam(seqs, names, sam=True)
+    if payload.decode() != "".join(l + "\n" for l in lines) \
+            or counts.tolist() != [len(rs) for rs in recs]:
+        raise AssertionError("overflow path: align_batch_bam(sam=True) "
+                             "differs from the records' to_sam lines")
+    log("overflow path: align_batch_bam(sam=True) == the records' to_sam "
+        f"lines ({len(payload)} bytes; fallback counted "
+        f"{aln.stats['fused_overflow_fallback'] - 1} more times)")
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -410,7 +465,8 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas[{k}]: {line.strip()}")
-    log(f"build: {time.time() - t0:.1f} s for {len(reports)} kernels")
+    log(f"build: {time.time() - t0:.1f} s for {len(reports)} kernel "
+        f"libraries ({', '.join(reports)})")
 
     # ---- reference, reads, index --------------------------------------------
     t0 = time.time()
@@ -446,13 +502,16 @@ def main() -> int:
     log("K1 synthetic M=3072 L=160 w in {32,100} zdrop in {0,100}: "
         "bit-equal (tolerance 0)")
     check_adaptive(gen, dev)
-    k1_ms, k1_plain, k1_bound, k1_err, k1_shapes = [], [], [], 0, set()
+    k1_ms, k1_ev, k1_plain, k1_bound, k1_err, k1_shapes = \
+        [], [], [], [], 0, set()
     for r in rec.k1:
         args, kw = k1_call_kwargs(r)
         got = sw_cuda.extend_batch_banded_cuda(*args, **kw)
         want = extend_batch(*args, return_rows=True, **kw)
-        k1_err = max(k1_err, max_abs_diff(got, want, K1_KEYS))
-        k1_ms.append(cuda_ms(
+        k1_err = max(k1_err, max_abs_diff(got, want))
+        k1_ms.append(device_ms(
+            lambda: sw_cuda.extend_batch_banded_cuda(*args, **kw), 5))
+        k1_ev.append(cuda_ms(
             lambda: sw_cuda.extend_batch_banded_cuda(*args, **kw), 5))
         k1_plain.append(cuda_ms(lambda: extend_batch(*args, **kw), 1))
         k1_bound.append(k1_bound_ms(args, kw["band"], want["rows"]))
@@ -462,23 +521,25 @@ def main() -> int:
         raise AssertionError(f"K1 differs on main-path inputs ({k1_err})")
     log(f"K1 main-path inputs ({len(rec.k1)} calls, shapes {sorted(k1_shapes)}): "
         "bit-equal (tolerance 0)")
-    for r, ms, pm, bd in zip(rec.k1, k1_ms, k1_plain, k1_bound):
+    for r, ms, ev, pm, bd in zip(rec.k1, k1_ms, k1_ev, k1_plain, k1_bound):
         args, kw = k1_call_kwargs(r)
-        log(f"  K1 M={args[0].shape[0]} w={kw['band']}: {ms:.3f} ms "
-            f"(plain {pm:.1f} ms, bound {bd[0]:.4f} ms, {bd[1]}) [{card}]")
+        log(f"  K1 M={args[0].shape[0]} w={kw['band']}: {ms:.4f} ms device "
+            f"time ({ev:.3f} ms/call with the wrapper; plain {pm:.1f} ms, "
+            f"bound {bd[0]:.4f} ms, {bd[1]}) [{card}]")
     kernels["sw_extend"] = dict(
         name="sw_extend_banded", route="cuda",
         source="seqlib_tpu_torch/csrc/sw_extend.cu",
         replaces="seqlib_tpu/ops/sw_pallas.py:174",
         max_abs_err=k1_err, ms=float(np.mean(k1_ms)),
-        plain_ms=float(np.mean(k1_plain)), library_ms=None,
+        event_ms=float(np.mean(k1_ev)), plain_ms=float(np.mean(k1_plain)),
+        library_ms=None,
         **bound_fields(k1_bound))
 
     # ---- K2 ------------------------------------------------------------------
     load_ns = dependent_load_ns(rec.k2[0][0], dev, gen)
     log(f"dependent load through {rec.k2[0][0].blocks.shape[0]} block rows "
         f"(one-thread chase, __ldg): {load_ns:.1f} ns [{card}]")
-    k2_ms, k2_plain, k2_bound, k2_err = [], [], [], 0
+    k2_ms, k2_ev, k2_plain, k2_bound, k2_err = [], [], [], [], 0
     for r in rec.k2:
         fm, kw = k2_call_kwargs(r)
         keys = K2_KEYS_BASE + (K2_KEYS_P3 if kw.get("p3_seeds") else ())
@@ -489,13 +550,16 @@ def main() -> int:
         k2_plain.append(1e3 * (time.time() - t0))
         k2_err = max(k2_err, max_abs_diff(got, want, keys))
         work = _smem_machine(fm, **kw, count_work=True)
-        k2_ms.append(cuda_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw), 5))
+        k2_ms.append(device_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw),
+                               5))
+        k2_ev.append(cuda_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw), 5))
         k2_bound.append(k2_bound_ms(fm, kw, work))
         n_ext = int(work["exts"].sum())
         dep_ms = 1e-6 * load_ns * int(work["rounds"].max())
         log(f"  K2 B={kw['reads'].shape[0]} L={kw['reads'].shape[1]} "
             f"S={kw['max_seeds']} p3={kw.get('p3_seeds', 0)} "
-            f"cap={kw['step_cap']}: {k2_ms[-1]:.3f} ms (plain "
+            f"cap={kw['step_cap']}: {k2_ms[-1]:.4f} ms device time "
+            f"({k2_ev[-1]:.3f} ms/call with the wrapper; plain "
             f"{k2_plain[-1]:.0f} ms, bound {k2_bound[-1][0]:.4f} ms, "
             f"{k2_bound[-1][1]}; "
             f"dependent-load bound {dep_ms:.4f} ms) [{card}]")
@@ -522,7 +586,8 @@ def main() -> int:
         source="seqlib_tpu_torch/csrc/smem_machine.cu",
         replaces="seqlib_tpu/ops/fm_pallas.py:77",
         max_abs_err=k2_err, ms=float(np.mean(k2_ms)),
-        plain_ms=float(np.mean(k2_plain)), library_ms=None,
+        event_ms=float(np.mean(k2_ev)), plain_ms=float(np.mean(k2_plain)),
+        library_ms=None,
         **bound_fields(k2_bound))
 
     # ---- main path -------------------------------------------------------------
@@ -548,8 +613,8 @@ def main() -> int:
         f"{n_reads / wall:.0f} reads/s [{card}]")
     log(f"launches on the main path: {launches} "
         f"(per batch: { {k: v / len(outs) for k, v in launches.items()} })")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in cuda_lib.MAIN_PATH:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main "
                                  "path")
     if n_reads != len(reads):
@@ -591,15 +656,29 @@ def main() -> int:
 
     for k, v in kernels.items():
         v["launches"] = int(launches[k])
+
+    # ---- overflow path and object API ----------------------------------------
+    check_overflow_path(dev, card)
+
+    # ---- K3, K4, K5 on the extension bench path --------------------------------
+    t0 = time.time()
+    bench = bench_sw.run(dev, log=log)
+    for k in bench_sw.RECT_KERNELS:
+        kernels[k] = bench[k]
+    log(f"extension bench (checks + timing): {time.time() - t0:.1f} s; "
+        "launches on the bench path: "
+        f"{ {k: bench[k]['launches'] for k in bench_sw.RECT_KERNELS} }")
+
     kl = [dict(name=v["name"], route=v["route"], source=v["source"],
                replaces=v["replaces"], launches=v["launches"],
                max_abs_err=v["max_abs_err"], ms=v["ms"],
-               plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
-               bound_by=v["bound_by"], library_ms=v["library_ms"])
+               event_ms=v["event_ms"], plain_ms=v["plain_ms"],
+               bound_ms=v["bound_ms"], bound_by=v["bound_by"],
+               library_ms=v["library_ms"])
           for v in kernels.values()]
     log("kernels: " + ", ".join(
         f"{v['name']} launches={v['launches']} equal={v['max_abs_err'] == 0}"
-        f" ms={v['ms']:.3f}" for v in kl))
+        f" ms={v['ms']:.4f}" for v in kl))
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kl}))
     print(card)

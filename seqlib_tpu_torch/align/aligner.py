@@ -1,4 +1,4 @@
-"""BWA-MEM-style single-end aligner, fused path (counterpart of
+"""BWA-MEM-style single-end aligner (counterpart of
 seqlib_tpu/align/aligner.py).
 
 ``align_batch_bam`` / ``align_stream_bam`` encode a batch, run the whole
@@ -6,54 +6,73 @@ device program (``device_full.align_full``: SMEM seeding on kernel K2,
 SA locate, chaining, banded extension on kernel K1, dedup and primary
 marking, global DP and traceback), then compute float64 MAPQ on the
 host and emit SAM/BAM records through the native C++ encoder
-(``native/bamenc.cpp``).  The output is byte-identical to
+(``native/bamenc.cpp``).  ``align_batch`` / ``align_sequence`` (the
+object API) return :class:`~seqlib_tpu_torch.core.record.BamRecord`
+lists from the same device program.  Every output is byte-identical to
 ``seqlib_tpu``'s same entry points.
 
-This slice covers the fused path only.  A batch whose extension DP
-rows overflow ``dp_rows(B)`` (the JAX package reruns it through its
-classic path) and reads longer than ``LONG_READ_BP`` raise
-:class:`FusedOverflowError`; no read is ever dropped and no partial
-output is returned.
+A batch whose extension DP rows overflow ``dp_rows(B)`` reruns through
+the classic path (``_collect_regions``: seed, chain and extend with an
+uncompacted re-extension, host dedup and primary marking, then
+``_regions_to_hits``) and is serialised through the object API, as the
+JAX package does; ``stats["fused_overflow_fallback"]`` counts it.
+Reads longer than ``LONG_READ_BP`` raise :class:`FusedOverflowError`.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures as _fut
+import math
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import native as _native
-from ..core.seq import NT4_TABLE
+from ..core.cigar import Cigar, CigarField
+from ..core.record import FREVERSE, FSECONDARY, BamRecord
+from ..core.seq import NT4_TABLE, revcomp
+from ..core.unaligned import UnalignedSequence
 from ..device import resolve_device
 from ..index.pack import both_strands
+from ..io.bam import encode_record
 from ..ops.fm import DeviceFMIndex
 from .device_full import (FLAG_EMIT, FLAG_OVER, FLAG_PERFECT, FLAG_WIDE,
-                          NFIELD, align_full)
-from .device_pipeline import ESC_SLOTS, dp_rows, global_and_traceback_packed
+                          NFIELD, _hash64, align_full)
+from .device_pipeline import (ESC_SLOTS, dp_rows, extend_chains,
+                              global_and_traceback_packed, seed_chain_extend)
 from .options import AlignerOptions
 
 MAX_SEEDS = 16          # per read from the seed scan
 MAX_OCC_LOCATE = 16     # occurrences located per seed
 MAX_CHAINS = 4          # chains extended per read
 REGION_SLOTS = MAX_CHAINS + ESC_SLOTS
+MAX_REGS = 8            # alignment regions kept per read (classic path)
 LONG_READ_BP = 1024     # the fused path's packed chain keys cap reads here
 
 
 class FusedOverflowError(RuntimeError):
-    """The fused path cannot align this batch exactly: more non-trivial
-    chains than extension DP rows, or reads over LONG_READ_BP.  The
-    JAX package reruns such batches through its classic path, which
-    this port does not have yet."""
+    """A batch holds reads longer than LONG_READ_BP: the fused path's
+    packed chain keys cannot order them, and the JAX package's long-read
+    path (host chaining) is not ported yet.  Nothing is returned."""
 
-    def __init__(self, msg: str, batch_size: int = 0, n_dp: int = 0,
-                 limit: int = 0):
-        super().__init__(msg)
-        self.batch_size = batch_size
-        self.n_dp = n_dp
-        self.limit = limit
+
+@dataclass
+class AlnReg:
+    """mem_alnreg_t equivalent (coordinates in 2L text space)."""
+    rb: int
+    re: int
+    qb: int
+    qe: int
+    score: int
+    seedcov: int
+    frac_rep: float
+    sub: int = 0
+    csub: int = 0
+    sub_n: int = 0
+    secondary: int = -1
 
 
 def _round_up(x: int, m: int) -> int:
@@ -79,6 +98,16 @@ def _unpack_ops(packed: np.ndarray) -> np.ndarray:
     out[:, 1::4] = (p >> 2) & 3
     out[:, 2::4] = (p >> 4) & 3
     out[:, 3::4] = (p >> 6) & 3
+    return out
+
+
+def _ops_to_cigars_batch(ops: np.ndarray, n_rows: int
+                         ) -> list[list[tuple[str, int]]]:
+    """Run-length decode traceback codes (reverse walk order, OP_NONE = 3
+    padding) into per-row CIGAR lists in forward 2L order."""
+    out: list[list[tuple[str, int]]] = [[] for _ in range(n_rows)]
+    for r, o, ln in zip(*(a.tolist() for a in _ops_to_runs(ops, n_rows))):
+        out[r].append(("MDI"[o], ln))
     return out
 
 
@@ -113,7 +142,8 @@ class BWAAligner:
 
     ``device`` is where the device program runs: ``"cuda"`` (default,
     the hand-written kernels) or ``"cpu"`` (their plain PyTorch
-    versions)."""
+    versions).  Scoring options are set through the ``set_*`` methods
+    (reference-style names) or ``self.options``."""
 
     def __init__(self, index, options: AlignerOptions | None = None,
                  device="cuda"):
@@ -128,11 +158,14 @@ class BWAAligner:
         self.text_t = torch.from_numpy(self.text).to(self.device)
         # truncation telemetry; align_stream_bam's host threads update it
         self.stats = dict(seeds_at_cap=0, occ_clipped=0, chains_at_cap=0,
-                          regions_widened=0, regions_dropped_wide=0,
+                          regs_truncated=0, regions_widened=0,
+                          regions_dropped_wide=0, fused_overflow_fallback=0,
                           escapees_deferred=0)
         self._stats_lock = threading.Lock()
+        self._copy_comment = False
         self._ann_offs = index.contig_offsets()
         self._ann_lens = index.contig_lengths()
+        self._names = index.contig_names()
         self._ref_blob_cache = None
 
     def reset_stats(self):
@@ -144,6 +177,21 @@ class BWAAligner:
         with self._stats_lock:
             for k, v in inc.items():
                 self.stats[k] += int(v)
+
+    # -- option setters forwarded (reference-style names) -------------------
+
+    def set_gap_open(self, v): self.options.set_gap_open(v)
+    def set_gap_extension(self, v): self.options.set_gap_extension(v)
+    def set_mismatch_penalty(self, v): self.options.set_mismatch_penalty(v)
+    def set_zdropoff(self, v): self.options.set_zdropoff(v)
+    def set_a_score(self, v): self.options.set_a_score(v)
+    def set_3prime_clipping_penalty(self, v):
+        self.options.set_3prime_clipping_penalty(v)
+    def set_5prime_clipping_penalty(self, v):
+        self.options.set_5prime_clipping_penalty(v)
+    def set_bandwidth(self, v): self.options.set_bandwidth(v)
+    def set_reseed_trigger(self, v): self.options.set_reseed_trigger(v)
+    def set_copy_comment(self, v: bool): self._copy_comment = v
 
     # ------------------------------------------------------------------
     # device program
@@ -165,13 +213,23 @@ class BWAAligner:
         if int(lens.max(initial=0)) > LONG_READ_BP:
             raise FusedOverflowError(
                 f"reads longer than {LONG_READ_BP} bp exceed the fused "
-                "path's packed chain keys", batch_size=enc.shape[0])
+                "path's packed chain keys (the long-read path is not "
+                "ported yet)")
         opt = self.options
         enc_lens = np.concatenate(
             [enc, lens.astype("<u4").view(np.uint8).reshape(-1, 4)], axis=1)
         return align_full(
             self.fm, self.text_t,
             torch.from_numpy(enc_lens).to(self.device),
+            **self._stage1_kwargs(), T=opt.T, mask_level=opt.mask_level,
+            mask_level_redun=opt.mask_level_redun,
+            glob_band=2 * opt.w + 8)
+
+    def _stage1_kwargs(self) -> dict:
+        """Seed, chain and extension options shared by the fused program
+        and the classic path's ``seed_chain_extend``."""
+        opt = self.options
+        return dict(
             l_pac=self.index.l_pac, max_seeds=MAX_SEEDS,
             min_seed_len=opt.min_seed_len, max_occ=opt.max_occ,
             k_occ=MAX_OCC_LOCATE, band=opt.w,
@@ -180,13 +238,260 @@ class BWAAligner:
             o_ins=opt.o_ins, e_ins=opt.e_ins, match=opt.a,
             mismatch=opt.b, pen_clip5=opt.pen_clip5,
             pen_clip3=opt.pen_clip3, w=opt.w, zdrop=opt.zdrop,
-            T=opt.T, mask_level=opt.mask_level,
-            mask_level_redun=opt.mask_level_redun,
-            glob_band=2 * opt.w + 8,
             split_len=opt.split_len, split_width=opt.split_width,
             min_chain_weight=opt.min_chain_weight,
             max_chain_extend=opt.max_chain_extend,
             max_mem_intv=opt.max_mem_intv)
+
+    # ------------------------------------------------------------------
+    # classic path: per-read regions, host dedup, global DP per region
+    # ------------------------------------------------------------------
+
+    def _collect_regions(self, enc: np.ndarray, lens: np.ndarray,
+                         dedup: bool = True) -> list[list[AlnReg]]:
+        """enc [B, L] nt4 codes (4-padded) -> per-read region lists
+        (deduped, primary/secondary marked): one ``seed_chain_extend``
+        (seed, locate, chain, compacted extension), then, when the batch
+        has more non-trivial chains than DP rows, an uncompacted
+        re-extension of every kept chain."""
+        B = enc.shape[0]
+        dev = self.device
+        out = seed_chain_extend(
+            self.fm, self.text_t, torch.from_numpy(enc).to(dev),
+            torch.from_numpy(lens.astype(np.int64)).to(dev),
+            **self._stage1_kwargs())
+        out = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+               for k, v in out.items()}
+        frac_reps = out["rep_cov"] / np.maximum(lens, 1)
+        keep = out["keep"]
+        qb, qe = out["qb"], out["qe"]
+        rb, re = out["rb"], out["re"]
+        score, weight = out["score"], out["weight"]
+        if out["n_dp"] > dp_rows(B):
+            qb, qe, rb, re, score = self._extend_uncompacted(enc, lens, out)
+        self._count(seeds_at_cap=out["seeds_full"][:B].sum(),
+                    occ_clipped=out["occ_clip"][:B].sum(),
+                    chains_at_cap=(out["n_seg"][:B] > MAX_CHAINS).sum(),
+                    escapees_deferred=out["esc_over"][:B].sum())
+        regions: list[list[AlnReg]] = [[] for _ in range(B)]
+        for b, c in zip(*np.nonzero(keep)):
+            regions[b].append(AlnReg(
+                int(rb[b, c]), int(re[b, c]), int(qb[b, c]),
+                int(qe[b, c]), int(score[b, c]), int(weight[b, c]),
+                float(frac_reps[b])))
+        if dedup:
+            for b in range(B):
+                regions[b] = self._dedup_and_mark(regions[b])
+        return regions
+
+    def _extend_uncompacted(self, enc, lens, out):
+        """Extend every kept chain in one standalone call (no DP-row
+        cap): the same arithmetic as the fused path's extension."""
+        keep = out["keep"]
+        bs, cs = np.nonzero(keep)
+        n = bs.size
+        qb, qe = out["qb"].copy(), out["qe"].copy()
+        rb, re = out["rb"].copy(), out["re"].copy()
+        score = out["score"].copy()
+        if not n:
+            return qb, qe, rb, re, score
+        M = _bucket(n)
+        b_idx = np.full(M, -1, np.int32)
+        aq = np.zeros(M, np.int32)
+        alen = np.zeros(M, np.int32)
+        ar = np.zeros(M, np.int64)
+        b_idx[:n] = bs
+        aq[:n] = out["anchor_q"][bs, cs]
+        alen[:n] = out["anchor_len"][bs, cs]
+        ar[:n] = out["anchor_r"][bs, cs]
+        dev = self.device
+        opt = self.options
+        res = extend_chains(
+            self.text_t, torch.from_numpy(enc).to(dev),
+            torch.from_numpy(lens.astype(np.int64)).to(dev),
+            *(torch.from_numpy(a).to(dev) for a in (b_idx, aq, alen, ar)),
+            l_pac=self.index.l_pac, o_del=opt.o_del, e_del=opt.e_del,
+            o_ins=opt.o_ins, e_ins=opt.e_ins, match=opt.a, mismatch=opt.b,
+            pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3, w=opt.w,
+            zdrop=opt.zdrop)
+        eqb, eqe, erb, ere, esc = (r.cpu().numpy() for r in res)
+        qb[bs, cs] = eqb[:n]
+        qe[bs, cs] = eqe[:n]
+        rb[bs, cs] = erb[:n]
+        re[bs, cs] = ere[:n]
+        score[bs, cs] = esc[:n]
+        return qb, qe, rb, re, score
+
+    def _dedup_and_mark(self, regs: list[AlnReg]) -> list[AlnReg]:
+        """mem_sort_dedup + mem_mark_primary_se semantics."""
+        opt = self.options
+        # dedup near-identical regions, walking (-score, rb, qb, re)
+        regs = sorted(regs, key=lambda r: (-r.score, r.rb, r.qb, r.re))
+        out: list[AlnReg] = []
+        for r in regs:
+            dup = False
+            for o in out:
+                if max(r.rb, o.rb) < min(r.re, o.re):
+                    inter = min(r.re, o.re) - max(r.rb, o.rb)
+                    minw = min(r.re - r.rb, o.re - o.rb)
+                    if inter >= opt.mask_level_redun * minw \
+                            and max(r.qb, o.qb) < min(r.qe, o.qe):
+                        dup = True
+                        break
+            if not dup:
+                out.append(r)
+        # bwa's mem_mark_primary_se walk: score desc, equal scores broken
+        # by hash_64(i), i = the region's index in the post-dedup list
+        ranked = sorted(enumerate(out),
+                        key=lambda t: (-t[1].score, _hash64(t[0])))
+        out = [r for _, r in ranked]
+        # primary/secondary by query overlap; sub_n counts losers within
+        # max(a+b, o_del+e_del, o_ins+e_ins) of the primary
+        tmp = max(opt.a + opt.b, opt.o_del + opt.e_del,
+                  opt.o_ins + opt.e_ins)
+        kept: list[int] = []
+        for i, r in enumerate(out):
+            placed = False
+            for k in kept:
+                p = out[k]
+                bmax, emin = max(r.qb, p.qb), min(r.qe, p.qe)
+                if emin > bmax:
+                    minl = min(r.qe - r.qb, p.qe - p.qb)
+                    if emin - bmax >= opt.mask_level * minl:
+                        r.secondary = k
+                        if p.sub == 0:
+                            p.sub = r.score
+                        if p.score - r.score <= tmp:
+                            p.sub_n += 1
+                        placed = True
+                        break
+            if not placed:
+                kept.append(i)
+        if len(out) > MAX_REGS:
+            self._count(regs_truncated=1)
+        return out[:MAX_REGS]
+
+    def _mapq(self, r: AlnReg) -> int:
+        """bwa's mem_approx_mapq_se, float64."""
+        opt = self.options
+        sub = r.sub if r.sub else opt.min_seed_len * opt.a
+        sub = max(sub, r.csub)
+        if sub >= r.score:
+            return 0
+        length = max(r.qe - r.qb, r.re - r.rb)
+        identity = 1.0 - float(length * opt.a - r.score) \
+            / (opt.a + opt.b) / length
+        if r.score == 0:
+            mapq = 0
+        else:
+            tmp = 1.0 if length < opt.mapQ_coef_len \
+                else opt.mapQ_coef_fac / math.log(length)
+            tmp *= identity * identity
+            mapq = int(6.02 * (r.score - sub) / opt.a * tmp * tmp + 0.499)
+        if r.sub_n > 0:
+            mapq -= int(4.343 * math.log(r.sub_n + 1) + 0.499)
+        mapq = min(mapq, 60)
+        mapq = max(mapq, 0)
+        return int(mapq * (1.0 - r.frac_rep) + 0.499)
+
+    def _regions_to_hits(self, enc, lens, regions):
+        """Global-align every region with score >= T; per-read hit dicts."""
+        opt = self.options
+        flat = [(b, r) for b, rs in enumerate(regions) for r in rs
+                if r.score >= opt.T]
+        hits_per_read: list[list[dict]] = [[] for _ in range(len(regions))]
+        if not flat:
+            return hits_per_read
+        # query bucket = read length; a narrow target bucket (deletions up
+        # to 128 bp) and a wide one (up to 512 bp); longer spans are
+        # dropped and counted
+        Lq = enc.shape[1]
+        Lt = Lq + min(2 * opt.w, 128)
+        Lt_wide = Lq + 512
+        kept = []
+        for b, r in flat:
+            span_t = r.re - r.rb
+            if r.qe - r.qb <= Lq and span_t <= Lt_wide:
+                kept.append((b, r))
+                if span_t > Lt:
+                    self._count(regions_widened=1)
+            else:
+                self._count(regions_dropped_wide=1)
+        flat = kept
+        if not flat:
+            return hits_per_read
+        # an exact match (score = span * a, equal spans, equal bases) is
+        # one M run with NM 0 and needs no global DP
+        perfect = np.zeros(len(flat), dtype=bool)
+        for m, (b, r) in enumerate(flat):
+            span = r.qe - r.qb
+            if (r.score == span * opt.a and r.re - r.rb == span
+                    and np.array_equal(enc[b, r.qb:r.qe],
+                                       self.text[r.rb:r.re])):
+                perfect[m] = True
+        cigars: dict[int, list[tuple[str, int]]] = {}
+        nms_by_row: dict[int, int] = {}
+        for m in np.flatnonzero(perfect):
+            b, r = flat[m]
+            cigars[m] = [("M", r.qe - r.qb)]
+            nms_by_row[m] = 0
+        spans = np.array([r.re - r.rb for _, r in flat], np.int64)
+        narrow = np.flatnonzero(~perfect & (spans <= Lt))
+        wide = np.flatnonzero(~perfect & (spans > Lt))
+        dev = self.device
+        for dev_rows, width, band in ((narrow, Lt, 2 * opt.w + 8),
+                                      (wide, Lt_wide, Lt_wide + 8)):
+            if not dev_rows.size:
+                continue
+            M = _bucket(dev_rows.size)
+            q = np.full((M, Lq), 4, np.uint8)
+            t = np.full((M, width), 4, np.uint8)
+            ql = np.zeros(M, np.int32)
+            tl = np.zeros(M, np.int32)
+            for k, m in enumerate(dev_rows):
+                b, r = flat[m]
+                ql[k] = r.qe - r.qb
+                tl[k] = r.re - r.rb
+                q[k, :ql[k]] = enc[b, r.qb:r.qe]
+                t[k, :tl[k]] = self.text[r.rb:r.re]
+            snm, packed = global_and_traceback_packed(
+                *(torch.from_numpy(a).to(dev) for a in (q, ql, t, tl)),
+                o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+                e_ins=opt.e_ins, match=opt.a, mismatch=opt.b, band=band)
+            nms = snm.cpu().numpy()[:, 1]
+            dev_cigs = _ops_to_cigars_batch(
+                _unpack_ops(packed.cpu().numpy()), dev_rows.size)
+            for k, m in enumerate(dev_rows):
+                cigars[m] = dev_cigs[k]
+                nms_by_row[m] = int(nms[k])
+
+        l_pac = self.index.l_pac
+        # region-list index per read: hit['sec'] points into it (XA)
+        slot_of = [{id(r): k for k, r in enumerate(rs)} for rs in regions]
+        for m, (b, r) in enumerate(flat):
+            is_rev = r.rb >= l_pac
+            L = int(lens[b])
+            if is_rev:
+                cig_sam = list(reversed(cigars[m]))
+                clip5, clip3 = L - r.qe, r.qb
+                pos2l = 2 * l_pac - r.re
+            else:
+                cig_sam = cigars[m]
+                clip5, clip3 = r.qb, L - r.qe
+                pos2l = r.rb
+            rid, pos = self.index.pos_to_ref(pos2l)
+            # a region crossing a contig boundary is dropped
+            if pos + (r.re - r.rb) > self._ann_lens[rid]:
+                continue
+            full = ([("N", clip5)] if clip5 else []) + cig_sam \
+                + ([("N", clip3)] if clip3 else [])
+            mapq = self._mapq(r) if r.secondary < 0 else 0
+            hits_per_read[b].append(dict(
+                rid=rid, pos=pos, is_rev=is_rev, score=r.score,
+                mapq=mapq, secondary=r.secondary >= 0,
+                cigar=full, nm=nms_by_row[m], n_regs=len(regions[b]),
+                slot=slot_of[b].get(id(r), -1), sec=r.secondary))
+        return hits_per_read
 
     # ------------------------------------------------------------------
     # host: MAPQ, contig resolution, columnar hits
@@ -195,7 +500,9 @@ class BWAAligner:
     def _hits_cols_from_full(self, enc, lens, res):
         """Columnar hits (grouped by read, aligner append order) from the
         device program's outputs, ready for ``native.bam_encode_hits``.
-        Raises FusedOverflowError when the extension DP rows overflowed."""
+        Returns None (and counts ``fused_overflow_fallback``) when the
+        extension DP rows overflowed: the caller reruns the batch through
+        the classic path."""
         opt = self.options
         regions = res[0].cpu().numpy()
         snm = res[1].cpu().numpy()
@@ -207,16 +514,13 @@ class BWAAligner:
         extra0 = C * NFIELD
         rep_cov = regions[:, extra0]
         n_regs = regions[:, extra0 + 1]
-        if B and int(regions[0, extra0 + 6]) > dp_rows(B):
-            raise FusedOverflowError(
-                f"extension DP rows overflowed: {int(regions[0, extra0 + 6])}"
-                f" non-trivial chains > dp_rows({B}) = {dp_rows(B)}",
-                batch_size=B, n_dp=int(regions[0, extra0 + 6]),
-                limit=dp_rows(B))
         self._count(occ_clipped=regions[:, extra0 + 2].sum(),
                     seeds_at_cap=regions[:, extra0 + 3].sum(),
                     chains_at_cap=(regions[:, extra0 + 4] > MAX_CHAINS).sum(),
                     escapees_deferred=regions[:, extra0 + 7].sum())
+        if B and int(regions[0, extra0 + 6]) > dp_rows(B):
+            self._count(fused_overflow_fallback=1)
+            return None
         n_dp = int(regions[0, extra0 + 5]) if B else 0
         run_rows, run_ops, run_lens = _ops_to_runs(_unpack_ops(packed), n_dp)
 
@@ -372,7 +676,7 @@ class BWAAligner:
     def _ref_name_arrays(self):
         """Contig-name blob + offsets for the native XA/SAM encoder."""
         if self._ref_blob_cache is None:
-            enc_names = [n.encode() for n in self.index.contig_names()]
+            enc_names = [n.encode() for n in self._names]
             off = np.zeros(len(enc_names) + 1, np.int64)
             np.cumsum(np.array([len(b) for b in enc_names], np.int64),
                       out=off[1:])
@@ -383,9 +687,25 @@ class BWAAligner:
     def _payload_batch(self, chunk, enc, lens, res, hardclip,
                        keep_sec_frac, max_secondary, sam=False):
         """Device outputs -> serialized BAM records (or SAM text) and
-        per-read record counts, through native/bamenc.cpp."""
+        per-read record counts, through native/bamenc.cpp; a batch that
+        overflowed the fused program's DP rows goes through the object
+        path (classic rerun, BamRecord serialisation) instead."""
         B = len(chunk)
         cols = self._hits_cols_from_full(enc, lens, res)
+        if cols is None:
+            hdr = self.index.header_from_index() if sam else None
+            payload = bytearray()
+            counts = np.zeros(B, np.int32)
+            for b, (_, recs) in enumerate(self._finish_batch(
+                    chunk, enc, lens, res, hardclip, keep_sec_frac,
+                    max_secondary)):
+                counts[b] = len(recs)
+                for r in recs:
+                    if sam:
+                        payload += r.to_sam(hdr).encode() + b"\n"
+                    else:
+                        payload += encode_record(r)
+            return bytes(payload), counts
         mask = cols["read_idx"] < B
         if not mask.all():
             cols = _filter_cols(cols, mask)
@@ -460,3 +780,155 @@ class BWAAligner:
                     yield inflight.pop(0).result()
             for f in inflight:
                 yield f.result()
+
+    # ------------------------------------------------------------------
+    # object API: BamRecord lists
+    # ------------------------------------------------------------------
+
+    def _hits_from_full(self, enc, lens, res):
+        """Per-read hit dicts from the device program's outputs, or from
+        the classic path when its extension DP rows overflowed."""
+        cols = self._hits_cols_from_full(enc, lens, res)
+        if cols is None:
+            B = enc.shape[0]
+            return self._regions_to_hits(
+                enc, lens, self._collect_regions(enc, lens)[:B])
+        return self._cols_to_hit_dicts(cols, enc.shape[0])
+
+    def _cols_to_hit_dicts(self, cols, B):
+        """Columnar hits -> per-read dict lists (object-API shape)."""
+        hits: list[list[dict]] = [[] for _ in range(B)]
+        ro, rl = cols["run_ops"], cols["run_lens"]
+        ri = cols["read_idx"]
+        for i in range(ri.size):
+            n = int(cols["cig_n"][i])
+            if n == 0:
+                cig2l = [("M", int(cols["match_len"][i]))]
+            else:
+                o = int(cols["cig_off"][i])
+                cig2l = [("MDI"[ro[k]], int(rl[k])) for k in range(o, o + n)]
+            if cols["is_rev"][i]:
+                cig2l = list(reversed(cig2l))
+            c5, c3 = int(cols["clip5"][i]), int(cols["clip3"][i])
+            full = ([("N", c5)] if c5 else []) + cig2l \
+                + ([("N", c3)] if c3 else [])
+            hits[int(ri[i])].append(dict(
+                rid=int(cols["rid"][i]), pos=int(cols["pos"][i]),
+                is_rev=bool(cols["is_rev"][i]),
+                score=int(cols["score"][i]), mapq=int(cols["mapq"][i]),
+                secondary=bool(cols["is_sec"][i]), cigar=full,
+                nm=int(cols["nm"][i]), n_regs=int(cols["n_regs"][i]),
+                slot=int(cols["slot"][i]), sec=int(cols["sec"][i])))
+        return hits
+
+    def _finish_batch(self, chunk, enc, lens, res, hardclip,
+                      keep_sec_frac, max_secondary):
+        """Yields (read, records) for each read of ``chunk``."""
+        hits = self._hits_from_full(enc, lens, res)
+        if keep_sec_frac < 0.0 or keep_sec_frac > 1.0:
+            hits = [[h for h in hs if not h["secondary"]] for hs in hits]
+        for b, r in enumerate(chunk):
+            yield r, self._assemble_records(r.seq, r.name, hits[b], hardclip,
+                                            keep_sec_frac, max_secondary)
+
+    def align_batch(self, seqs: list[str], names: list[str],
+                    hardclip: bool = False, keep_sec_frac: float = 0.9,
+                    max_secondary: int = 10) -> list[list[BamRecord]]:
+        """Align a batch of reads; returns per-read BamRecord lists (MAPQ
+        sort, keepSecFrac/maxSecondary filters, clip rewrite, XA)."""
+        if not seqs:
+            return []
+        _Read = collections.namedtuple("_Read", "name seq")
+        chunk = [_Read(n, s) for n, s in zip(names, seqs)]
+        enc, lens = self._encode_batch(seqs)
+        res = self._dispatch_full(enc, lens)
+        return [recs for _, recs in self._finish_batch(
+            chunk, enc, lens, res, hardclip, keep_sec_frac, max_secondary)]
+
+    def align_sequence(self, seq, name: str = "", out: list | None = None,
+                       hardclip: bool = False, keep_sec_frac: float = 0.9,
+                       max_secondary: int = 10) -> list[BamRecord]:
+        """One read (a string or an UnalignedSequence) -> its records,
+        also appended to ``out`` when given.  With ``set_copy_comment``
+        an UnalignedSequence's comment becomes a BC tag."""
+        if isinstance(seq, UnalignedSequence):
+            recs = self.align_sequence(seq.seq, seq.name, None, hardclip,
+                                       keep_sec_frac, max_secondary)
+            if self._copy_comment:
+                for r in recs:
+                    r.add_z_tag("BC", seq.com)
+        else:
+            recs = self.align_batch([seq], [name], hardclip, keep_sec_frac,
+                                    max_secondary)[0]
+        if out is not None:
+            out.extend(recs)
+        return recs
+
+    def _assemble_records(self, seq: str, name: str, hits: list[dict],
+                          hardclip: bool, keep_sec_frac: float,
+                          max_secondary: int) -> list[BamRecord]:
+        """One read's hits -> records, with bwa mem's XA: each secondary
+        whose score >= XA_drop_ratio * its primary's becomes a
+        "ref,(+-)pos1,cigar,NM;" entry on that primary (none when more
+        than max_XA_hits qualify), gathered before the keepSecFrac /
+        maxSecondary filters."""
+        opt = self.options
+        xa_of: dict[int, list[str]] = {}
+        if hits:
+            by_slot = {h["slot"]: h for h in hits if h.get("slot", -1) >= 0}
+            for h in hits:
+                r = h.get("sec", -1)
+                if r < 0:
+                    continue
+                p = by_slot.get(r)
+                if p is None or h["score"] < p["score"] * opt.XA_drop_ratio:
+                    continue
+                cig = "".join(f"{ln}{'S' if op == 'N' else op}"
+                              for op, ln in h["cigar"])
+                xa_of.setdefault(r, []).append(
+                    f"{self._names[h['rid']]},"
+                    f"{'-' if h['is_rev'] else '+'}{h['pos'] + 1},"
+                    f"{cig},{h['nm']};")
+        # sort: MAPQ desc, then rid, then pos
+        hits = sorted(hits, key=lambda h: (-h["mapq"], h["rid"], h["pos"]))
+        out: list[BamRecord] = []
+        primary_score = 0.0
+        clip_op = "H" if hardclip else "S"
+        for i, h in enumerate(hits):
+            is_sec = h["secondary"]
+            too_low = is_sec and (primary_score * keep_sec_frac > h["score"])
+            too_many = is_sec and (i > max_secondary)
+            if too_low or too_many:
+                continue
+            if not is_sec:
+                primary_score = h["score"]
+            rec = BamRecord()
+            rec.qname = name
+            rec.tid = h["rid"]
+            rec.pos = h["pos"]
+            rec.mapq = h["mapq"]
+            rec.flag = (FSECONDARY if is_sec else 0) \
+                | (FREVERSE if h["is_rev"] else 0)
+            # clips are N placeholders: S, or H with the sequence trimmed
+            clipped = seq
+            if hardclip:
+                tstart = 0
+                clen = 0
+                for k, (op, ln) in enumerate(h["cigar"]):
+                    if k == 0 and op == "N":
+                        tstart = ln
+                    elif op in ("M", "I", "S", "=", "X"):
+                        clen += ln
+                clipped = seq[tstart:tstart + clen] if clen else seq
+            rec.cigar = Cigar([CigarField(clip_op if op == "N" else op, ln)
+                               for op, ln in h["cigar"]])
+            rec.seq = revcomp(clipped) if h["is_rev"] else clipped.upper()
+            rec.qual = None
+            rec.add_int_tag("NA", h["n_regs"])
+            rec.add_int_tag("NM", h["nm"])
+            xa = xa_of.get(h.get("slot", -1))
+            if xa and not is_sec and len(xa) <= opt.max_XA_hits:
+                rec.add_z_tag("XA", "".join(xa))
+            rec.add_int_tag("AS", h["score"])
+            out.append(rec)
+        return out

@@ -1,0 +1,357 @@
+"""Seed-extension bench on the GPU: the rectangle kernels K3, K4 and K5,
+and the banded kernel K1 at bwa's band, on the JAX package's bench
+inputs (counterpart of ``bench.py``'s SW section,
+``scripts/sw_banded_bench.py`` and ``scripts/sw_variant_sweep.py``).
+
+    python -m seqlib_tpu_torch.bench_sw
+
+Inputs, made from seed 0 with numpy:
+* ``bench``: bench.py's B = 1024 lanes, Lq = 150, Lt = 250, codes 0-3,
+  full lengths, h0 = 30;
+* ``sweep``: the sweep's codes 0-4, qlen 100-150, tlen 150-250,
+  h0 10-150;
+* ``edges``: short, empty (qlen 0 or tlen 0) and near-identical lanes.
+
+Each kernel is first held against its plain version
+(``ops.sw.extend_rect``; ``extend_batch(band=100)`` for K1) on every
+set, at zdrop 0 and 100 (K5 at 100 only), tolerance 0.  Then, at
+zdrop = 100 on the bench set, it is timed: device time per launch over
+10 launches queued behind a sleep kernel (``device_ms``; ``ms`` in
+chip_smoke.py's kernel line, for every kernel), ms per call with the
+Python wrapper from CUDA events over 10 back-to-back calls
+(``event_ms``), and the device-time rate of K = 32 dependent launches
+(h0 = score % 1000, as bench.py chains them) in Gcells/s over rectangle
+cells B*Lq*Lt (band cells for K1, counted as sw_banded_bench.py counts
+them).  K1 and K3 are also compared per DP
+cell the inputs need, device time on both sides.  Launches of the
+checks are not counted; ``run`` returns each kernel's launches over the
+timed part.  Every line names the card and its power limit.
+"""
+
+from __future__ import annotations
+
+import functools
+import subprocess
+import sys
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .ops import cuda_lib
+from .ops.sw import extend_batch, extend_rect
+from .ops.sw_cuda import extend_batch_banded, extend_batch_rect
+from .ops.sw_variants import extend_v3, extend_v4
+
+B, LQ, LT = 1024, 150, 250
+ZDROP = 100
+CHAIN = 32
+BAND = 100
+KEYS = ("score", "qle", "tle", "gscore", "gtle")
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+# int32 ALU peak: the data sheet's 67 TFLOP/s float32 counts an FMA as
+# two operations on 128 lanes per SM; Hopper has 64 INT32 lanes per SM
+INT32_OPS_PER_S = 67e12 / 4
+# int32 operations per DP cell, counted from the kernels' cell body:
+# F (2 subtractions, max), substitution score (compare, select), M (add),
+# hnd (max), E (scan term add, running max, subtract), H (max), the
+# column mask (compare), the best and row-max tests (2 compares)
+OPS_PER_CELL = 14
+
+class RectKernel(NamedTuple):
+    counter: str        # its launch counter (and C entry point)
+    replaces: str       # the TPU kernel it replaces
+    zdrops: tuple       # the zdrops it is checked at
+    fns: dict           # its wrappers, by label
+
+
+RECT_KERNELS = {
+    "K3": RectKernel("sw_extend_rect", "seqlib_tpu/ops/sw_pallas.py:55",
+                     (0, ZDROP), {"": extend_batch_rect}),
+    "K4": RectKernel("sw_extend_rect_blocked",
+                     "scripts/sw_variant_sweep.py:21", (0, ZDROP),
+                     {"": extend_v3}),
+    "K5": RectKernel("sw_extend_rect_interleaved",
+                     "scripts/sw_variant_sweep.py:188", (ZDROP,),
+                     {"nch=2": functools.partial(extend_v4, nch=2),
+                      "nch=3": functools.partial(extend_v4, nch=3)}),
+}
+SOURCE = "seqlib_tpu_torch/csrc/sw_rect.cu"
+
+
+def smi_name_power() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call of fn() on the card (CUDA events, after one
+    warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time per call (ms) of fn(): ``reps`` calls queued
+    behind a sleep kernel, so the host's work on them (the Python
+    wrapper) overlaps the sleep and the card runs them back to back,
+    timed with CUDA events around the ``reps`` calls, after a warm-up
+    call.  The sleep grows until it outlasts the host's queueing; raises
+    if it never does (fn waits on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(6):
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        b.record()
+        torch.cuda.synchronize()
+        if host_ms < 0.5 * s.elapsed_time(a):
+            return a.elapsed_time(b) / reps
+        cycles *= 4
+    raise RuntimeError("device_ms: the calls take longer to queue than the "
+                       "sleep lasts; does fn wait on the card?")
+
+
+def roof_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    """(max(bytes / HBM rate, int32 ops / int32 rate) in ms, which of
+    the two bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def max_abs_diff(a: dict, b: dict, keys=KEYS) -> int:
+    return max(int((a[k].to(torch.int64) - b[k].to(torch.int64))
+                   .abs().max()) if a[k].numel() else 0 for k in keys)
+
+
+def _tensors(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+def bench_inputs(dev, seed: int = 0):
+    """bench.py's SW inputs: codes 0-3, full lengths, h0 = 30."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (B, LQ)).astype(np.int8)
+    t = rng.integers(0, 4, (B, LT)).astype(np.int8)
+    return _tensors(dev, q, np.full(B, LQ, np.int32), t,
+                    np.full(B, LT, np.int32), np.full(B, 30, np.int32))
+
+
+def sweep_inputs(dev, seed: int = 0):
+    """scripts/sw_variant_sweep.py's inputs: codes 0-4, qlen 100-150,
+    tlen 150-250, h0 10-150."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 5, (B, LQ)).astype(np.int8)
+    t = rng.integers(0, 5, (B, LT)).astype(np.int8)
+    ql = rng.integers(100, LQ + 1, B).astype(np.int32)
+    tl = rng.integers(150, LT + 1, B).astype(np.int32)
+    h0 = rng.integers(10, 151, B).astype(np.int32)
+    return _tensors(dev, q, ql, t, tl, h0)
+
+
+def edge_inputs(dev, seed: int = 1):
+    """Short, empty and near-identical lanes: a third of the lanes align
+    their query to the target with a few substitutions (long live
+    rows), a tenth have qlen = 0, a twentieth tlen = 0, a fifth are
+    short."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 5, (B, LQ)).astype(np.int8)
+    t = rng.integers(0, 5, (B, LT)).astype(np.int8)
+    ql = rng.integers(1, LQ + 1, B).astype(np.int32)
+    tl = rng.integers(1, LT + 1, B).astype(np.int32)
+    h0 = rng.integers(0, 80, B).astype(np.int32)
+    kind = rng.random(B)
+    for m in np.flatnonzero(kind < 0.33):
+        n = int(ql[m])
+        t[m, :n] = q[m, :n]
+        tl[m] = max(int(tl[m]), n)
+        for p in rng.integers(0, n, int(rng.integers(0, 4))):
+            t[m, p] = (t[m, p] + 1) % 4
+    short = (kind >= 0.33) & (kind < 0.53)
+    ql[short] = rng.integers(1, 21, int(short.sum()))
+    ql[kind >= 0.9] = 0
+    tl[(kind >= 0.85) & (kind < 0.9)] = 0
+    return _tensors(dev, q, ql, t, tl, h0)
+
+
+def rect_cells(args, rows: torch.Tensor) -> int:
+    """DP cells these lanes need: the rows each lane computed (from the
+    plain version) times its tlen + 1 columns."""
+    _, _, t, tl, _ = args
+    cols = torch.clamp(tl.to(torch.int64), 0, t.shape[1]) + 1
+    return int((rows.to(torch.int64) * cols).sum())
+
+
+def band_cells(Lq: int, Lt: int, w: int) -> int:
+    """Band cells of a full-length lane under |j - R| <= w
+    (scripts/sw_banded_bench.py's count)."""
+    return sum(max(0, min(Lt, R + w) - max(0, R - w) + 1)
+               for R in range(1, Lq + 1))
+
+
+def band_cells_needed(args, w: int, rows: torch.Tensor) -> int:
+    """Band cells the DP computes for these lanes (rows = DP rows each
+    lane ran, from the plain version)."""
+    q, _, t, tl, _ = args
+    Lq, Lt = q.shape[1], t.shape[1]
+    R = torch.arange(1, Lq + 1, device=q.device)[None, :]
+    tle = torch.clamp(tl.to(torch.int64), max=Lt)[:, None]
+    live = torch.clamp(torch.minimum(R + w, tle) - torch.clamp(R - w, min=0)
+                       + 1, min=0)
+    return int((live * (R <= rows.to(torch.int64)[:, None])).sum())
+
+
+def rect_bound_ms(args, rows) -> tuple[float, str]:
+    q, _, t, _, _ = args
+    M = q.shape[0]
+    nbytes = q.numel() + t.numel() + 3 * 4 * M + 5 * 4 * M
+    return roof_ms(nbytes, OPS_PER_CELL * rect_cells(args, rows))
+
+
+def chained_ms(fn, args) -> float:
+    """Device ms for CHAIN dependent launches (h0 = score % 1000 each
+    step)."""
+    q, ql, t, tl, h0 = args
+
+    def chain():
+        h = h0
+        for _ in range(CHAIN):
+            h = fn(q, ql, t, tl, h)["score"] % 1000
+        return h
+
+    return device_ms(chain, 1)
+
+
+def run(dev, log=print) -> dict:
+    """Check K3, K4, K5 (and K1 at band 100) against their plain
+    versions on the card, then time them; returns, for K3-K5, the
+    fields of chip_smoke.py's kernel line (launches over the timed part,
+    max_abs_err, ms, event_ms, plain_ms, bound_ms, bound_by, ...).
+    Raises if a kernel differs from its plain version."""
+    card = smi_name_power()
+    sets = {"bench": bench_inputs(dev), "sweep": sweep_inputs(dev),
+            "edges": edge_inputs(dev)}
+    # ---- exactness first (these launches are not counted) ------------
+    errs = {}
+    for name, k in RECT_KERNELS.items():
+        err = 0
+        for label, fn in k.fns.items():
+            for sname, args in sets.items():
+                for zd in k.zdrops:
+                    e = max_abs_diff(fn(*args, zdrop=zd),
+                                     extend_rect(*args, zdrop=zd))
+                    if e:
+                        raise AssertionError(
+                            f"{name} {label} differs from extend_rect on "
+                            f"{sname} zdrop={zd} (max |diff| {e})")
+                    err = max(err, e)
+        errs[name] = err
+        log(f"{name} {SOURCE}: bit-equal to extend_rect on "
+            f"{'/'.join(sets)} x zdrop {k.zdrops} (tolerance 0)")
+    for sname, args in sets.items():
+        e = max_abs_diff(extend_batch_banded(*args, band=BAND, zdrop=ZDROP),
+                         extend_batch(*args, band=BAND, zdrop=ZDROP))
+        if e:
+            raise AssertionError(f"K1 differs on {sname} (max |diff| {e})")
+    log(f"K1 band={BAND}: bit-equal to extend_batch(band={BAND}) on "
+        f"{'/'.join(sets)} (tolerance 0)")
+
+    # ---- timing on bench.py's inputs ---------------------------------
+    args = sets["bench"]
+    plain = extend_rect(*args, zdrop=ZDROP, return_rows=True)
+    cells_rect = B * LQ * LT
+    bound = rect_bound_ms(args, plain["rows"])
+    plain_ms = cuda_ms(lambda: extend_rect(*args, zdrop=ZDROP), 1)
+    log(f"bench inputs B={B} Lq={LQ} Lt={LT} zdrop={ZDROP}: "
+        f"{rect_cells(args, plain['rows']) / 1e6:.2f} M cells needed of "
+        f"{B * LQ * (LT + 1) / 1e6:.2f} M; plain extend_rect "
+        f"{plain_ms:.1f} ms; bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    before = dict(cuda_lib.LAUNCHES)
+    out = {}
+    for name, k in RECT_KERNELS.items():
+        ms_each = []
+        for label, fn in k.fns.items():
+            ev = cuda_ms(lambda: fn(*args, zdrop=ZDROP), 10)
+            dv = device_ms(lambda: fn(*args, zdrop=ZDROP), 10)
+            ms_each.append((dv, ev))
+            ch = chained_ms(functools.partial(fn, zdrop=ZDROP), args)
+            log(f"{name} {label}: device time per launch {dv:.4f} ms "
+                f"(10 queued launches); {ev:.3f} ms/call with the "
+                f"wrapper (CUDA events over 10 calls); chained x{CHAIN}: "
+                f"{ch:.2f} ms = "
+                f"{cells_rect * CHAIN / (ch * 1e-3) / 1e9:.1f} Gcells/s "
+                f"(rectangle cells) [{card}]")
+        # the first variant stands for the kernel (K5: nch = 2)
+        out[name] = dict(
+            name=k.counter, route="cuda", source=SOURCE,
+            replaces=k.replaces, max_abs_err=errs[name], ms=ms_each[0][0],
+            event_ms=ms_each[0][1], plain_ms=plain_ms, bound_ms=bound[0],
+            bound_by=bound[1], library_ms=None)
+    kb = dict(band=BAND, zdrop=ZDROP)
+    ev1 = cuda_ms(lambda: extend_batch_banded(*args, **kb), 10)
+    dv1 = device_ms(lambda: extend_batch_banded(*args, **kb), 10)
+    ch1 = chained_ms(functools.partial(extend_batch_banded, **kb), args)
+    cb = B * band_cells(LQ, LT, BAND)
+    log(f"K1 band={BAND}: device time per launch {dv1:.4f} ms (10 queued "
+        f"launches); {ev1:.3f} ms/call with the wrapper (CUDA events); "
+        f"chained x{CHAIN}: {ch1:.2f} ms = "
+        f"{cb * CHAIN / (ch1 * 1e-3) / 1e9:.1f} Gcells/s (band cells, "
+        f"{cells_rect / cb:.2f}x fewer than the rectangle), "
+        f"{cells_rect * CHAIN / (ch1 * 1e-3) / 1e9:.1f} rectangle-equivalent "
+        f"[{card}]")
+    # device time per DP cell these inputs need (z-drop stops lanes early)
+    n3 = rect_cells(args, plain["rows"])
+    n1 = band_cells_needed(
+        args, BAND, extend_batch(*args, return_rows=True, **kb)["rows"])
+    ns3 = 1e6 * out["K3"]["ms"] / n3
+    ns1 = 1e6 * dv1 / n1
+    log(f"per needed cell, device time on both sides: K1 {ns1 * 1e3:.3f} ps "
+        f"({n1 / 1e6:.2f} M band cells), K3 {ns3 * 1e3:.3f} ps "
+        f"({n3 / 1e6:.2f} M rectangle cells): K3/K1 = x{ns1 / ns3:.2f} "
+        f"[{card}]")
+    torch.cuda.synchronize()
+    for name, v in out.items():
+        v["launches"] = cuda_lib.LAUNCHES[v["name"]] - before[v["name"]]
+        if v["launches"] <= 0:
+            raise AssertionError(f"{name} was not launched on the bench path")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("bench_sw: torch.cuda.is_available() is False; this bench "
+              "runs the kernels on a GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: "
+          f"{smi_name_power()}", flush=True)
+    for lib, rep in cuda_lib.build_all().items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas[{lib}]: {line.strip()}", flush=True)
+    run(dev, log=lambda *a: print(*a, flush=True))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

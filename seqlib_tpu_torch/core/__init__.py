@@ -1,3 +1,8 @@
-"""Sequence codes (counterpart of seqlib_tpu.core)."""
+"""Sequence codes, CIGARs, headers and alignment records (counterpart of
+seqlib_tpu.core)."""
 
+from .cigar import Cigar, CigarField  # noqa: F401
+from .header import BamHeader, HeaderSequence  # noqa: F401
+from .record import BamRecord  # noqa: F401
 from .seq import NT4_TABLE, encode_nt4, revcomp  # noqa: F401
+from .unaligned import UnalignedSequence  # noqa: F401

@@ -2,6 +2,8 @@
 
 * nt4 code: A=0 C=1 G=2 T=3, anything else 4 (N) — the alphabet of the
   FM-index and every DP kernel.
+* nib code (BAM 4-bit): ``=ACMGRSVTWYHKDBN``, two bases per byte in a
+  BAM record; ``ASCII_TO_NIB`` maps either case, anything else to 15.
 * ``revcomp`` complements A/C/G/T (either case) and keeps every other
   byte, then reverses.
 """
@@ -14,6 +16,12 @@ NT4_TABLE = np.full(256, 4, dtype=np.uint8)
 for _i, _b in enumerate(b"ACGT"):
     NT4_TABLE[_b] = _i
     NT4_TABLE[ord(chr(_b).lower())] = _i
+
+SEQ_NT16_STR = "=ACMGRSVTWYHKDBN"
+ASCII_TO_NIB = np.full(256, 15, dtype=np.uint8)
+for _i, _c in enumerate(SEQ_NT16_STR):
+    ASCII_TO_NIB[ord(_c)] = _i
+    ASCII_TO_NIB[ord(_c.lower())] = _i
 
 COMPLEMENT_TABLE = np.arange(256, dtype=np.uint8)
 for _a, _b in [(b"A", b"T"), (b"C", b"G"), (b"G", b"C"), (b"T", b"A"),

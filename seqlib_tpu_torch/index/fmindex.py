@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..core.header import BamHeader
 from ..native import suffix_array
 from .pack import Annotation, Hole, PackedReference, both_strands, \
     pack_sequences
@@ -112,3 +113,12 @@ class FMIndex:
     def sam_header_text(self) -> str:
         return "".join(f"@SQ\tSN:{a.name}\tLN:{a.length}\n"
                        for a in self.ref.anns)
+
+    def header_from_index(self) -> BamHeader:
+        return BamHeader(self.sam_header_text())
+
+    def pos_to_ref(self, pos: int) -> tuple[int, int]:
+        """Forward-strand text offset -> (reference id, offset in it)."""
+        offs = self.contig_offsets()
+        rid = int(np.searchsorted(offs, pos, side="right") - 1)
+        return rid, pos - int(offs[rid])

@@ -6,8 +6,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 then loaded with ctypes: pointers go in as ``c_void_p``, the stream is
 PyTorch's current stream, and every C entry returns
 ``cudaGetLastError()``.  ``build_all`` starts one nvcc per source at
-once.  ``LAUNCHES`` counts kernel launches per wrapper; it is the
-evidence that a run went through a kernel.
+once.  ``LAUNCHES`` counts launches per kernel (one counter per C
+entry point that launches one); it is the evidence that a run went
+through a kernel.  ``MAIN_PATH`` names the kernels the aligner runs;
+the rectangle kernels K3-K5 run only on the extension bench path
+(``bench_sw``).
 """
 
 from __future__ import annotations
@@ -35,9 +38,17 @@ SIGNATURES = {
         "smem_machine_max_stack": [],
         "smem_load_chase": [_VP, _CI, _CI, _VP, _VP],
     },
+    "sw_rect": {
+        "sw_extend_rect": [_VP] * 6 + [_CI] * 10 + [_VP],
+        "sw_extend_rect_blocked": [_VP] * 6 + [_CI] * 10 + [_VP],
+        "sw_extend_rect_interleaved": [_VP] * 7 + [_CI] * 11 + [_VP],
+        "sw_rect_max_width": [],
+    },
 }
-KERNELS = tuple(SIGNATURES)
-LAUNCHES = {name: 0 for name in KERNELS}
+LIBRARIES = tuple(SIGNATURES)
+MAIN_PATH = ("sw_extend", "smem_machine")
+LAUNCHES = {name: 0 for name in MAIN_PATH + (
+    "sw_extend_rect", "sw_extend_rect_blocked", "sw_extend_rect_interleaved")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -89,8 +100,8 @@ def _finish_build(name: str, job) -> str:
 
 def build_all() -> dict[str, str]:
     """Build every kernel library in parallel; returns nvcc's
-    ``-Xptxas -v`` report per kernel built now ("" if up to date)."""
-    jobs = {n: _start_build(n) for n in KERNELS}
+    ``-Xptxas -v`` report per library built now ("" if up to date)."""
+    jobs = {n: _start_build(n) for n in LIBRARIES}
     return {n: _finish_build(n, job) if job is not None else ""
             for n, job in jobs.items()}
 

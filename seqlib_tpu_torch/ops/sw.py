@@ -6,7 +6,9 @@ batch dimension, the target axis is a row vector, query rows run in a
 Python loop, and the same-row deletion (E) dependency is a cumulative
 max (E(j) = max_{j'<j}(Hnd(j') + e*j') - o - e*j).  With ``band > 0``
 it is the plain version of kernel K1 (``csrc/sw_extend.cu``), which
-must match it bit for bit, NEG surrogates included.
+must match it bit for bit, NEG surrogates included.  ``extend_rect``
+(``band=0`` with the dead-row convention of the rectangle kernels) is
+the plain version of kernels K3-K5 (``csrc/sw_rect.cu``).
 
 ``global_batch`` returns the packed direction matrix that
 ``align.device_pipeline.global_and_traceback`` walks on the device.
@@ -17,6 +19,10 @@ from __future__ import annotations
 import torch
 
 NEG = -0x40000000  # -inf surrogate that survives additions
+NEG16 = -16384     # the TPU rectangle kernels' -inf surrogate
+# the widest target the rectangle kernels take: K3/K4 keep Lt + 1
+# columns in 32 register slots of a warp (csrc/sw_rect.cu's MAX_SLOTS)
+RECT_MAX_LT = 1023
 
 _PACK_BIAS = 1 << 16
 _PACK_SHIFT = 12  # low bits carry (4095 - row index) for tie-breaks
@@ -137,6 +143,37 @@ def extend_batch(query, qlen, target, tlen, h0,
     if return_rows:
         out["rows"] = rows
     return out
+
+
+def extend_rect(query, qlen, target, tlen, h0,
+                o_del: int = 6, e_del: int = 1,
+                o_ins: int = 6, e_ins: int = 1,
+                match: int = 1, mismatch: int = 4,
+                zdrop: int = 0, return_rows: bool = False):
+    """Full-rectangle extension, the plain version of kernels K3-K5:
+    ``extend_batch(band=0)`` with their output convention for a lane
+    whose last query row is all dead (gscore <= NEG16): gscore = NEG
+    (-2^30) and gtle = 0.  Such a lane is one whose last row is never
+    computed (qlen = 0, qlen > Lq, or stopped by z-drop before it); in
+    the domain the kernels take (0 <= h0, Lq + Lt < 16000) a computed
+    row always has a live column 0, so the rule changes nothing else.
+    Shapes as ``check_rect_shape`` takes them."""
+    check_rect_shape("extend_rect", query.shape[1], target.shape[1])
+    out = extend_batch(query, qlen, target, tlen, h0, o_del=o_del,
+                       e_del=e_del, o_ins=o_ins, e_ins=e_ins, match=match,
+                       mismatch=mismatch, zdrop=zdrop, band=0,
+                       return_rows=return_rows)
+    dead = out["gscore"] <= NEG16
+    out["gscore"] = torch.where(dead, NEG, out["gscore"]).to(torch.int32)
+    out["gtle"] = torch.where(dead, 0, out["gtle"]).to(torch.int32)
+    return out
+
+
+def check_rect_shape(who: str, Lq: int, Lt: int) -> None:
+    """The shapes the rectangle extension takes, on every route: Lq <=
+    4095 (rows are packed as 4095 - row) and Lt <= RECT_MAX_LT."""
+    if Lq > 4095 or not 0 <= Lt <= RECT_MAX_LT:
+        raise ValueError(f"{who}: needs Lq <= 4095 and Lt <= {RECT_MAX_LT}")
 
 
 def global_batch(query, qlen, target, tlen,

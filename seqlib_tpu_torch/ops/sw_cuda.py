@@ -1,11 +1,16 @@
-"""Kernel K1: banded seed extension on CUDA, and the adaptive-band wrapper
-around it (counterpart of seqlib_tpu/ops/sw_pallas.py).
+"""Kernels K1 and K3: banded and full-rectangle seed extension on CUDA,
+and the adaptive-band wrapper around K1 (counterpart of
+seqlib_tpu/ops/sw_pallas.py).
 
 ``extend_batch_banded`` launches ``csrc/sw_extend.cu`` on CUDA tensors
 and runs the plain version ``ops.sw.extend_batch(band=...)`` on CPU
 tensors.  ``extend_batch_adaptive`` is the production extension: a
 narrow first pass, a provably safe acceptance test, and a full-band
 rerun of the rest; it equals ``extend_batch(band=band)``.
+``extend_batch_rect`` (the counterpart of ``extend_batch_pallas``)
+launches K3 from ``csrc/sw_rect.cu`` on CUDA tensors and runs
+``ops.sw.extend_rect`` on CPU tensors; ``launch_rect`` is the launcher
+shared with K4 and K5 (``ops.sw_variants``).
 """
 
 from __future__ import annotations
@@ -15,13 +20,26 @@ import ctypes
 import torch
 
 from . import cuda_lib
-from .sw import extend_batch
+from .sw import RECT_MAX_LT, check_rect_shape, extend_batch, extend_rect
 
 KERNEL = "sw_extend"
+RECT_LIB = "sw_rect"
 
 # which branch each adaptive call took (tests check all three run)
 ADAPTIVE_BRANCHES = {"narrow_only": 0, "compact_rerun": 0, "full_rerun": 0,
                      "full_band": 0}
+
+
+def _lane_args(name: str, dev, M: int, *values):
+    """Per-lane inputs as contiguous int32 tensors of shape (M,) on dev."""
+    out = []
+    for v in values:
+        v = torch.as_tensor(v, device=dev)
+        if v.shape != (M,):
+            raise ValueError(f"{name}: per-lane input of shape "
+                             f"{tuple(v.shape)}, expected ({M},)")
+        out.append(v.to(torch.int32).contiguous())
+    return out
 
 
 def extend_batch_banded(query, qlen, target, tlen, h0,
@@ -64,15 +82,8 @@ def extend_batch_banded_cuda(query, qlen, target, tlen, h0,
     Lt = target.shape[1]
     q8 = query.to(torch.int8).contiguous()
     t8 = target.to(torch.int8).contiguous()
-
-    def lane(v):
-        v = torch.as_tensor(v, device=dev)
-        if v.shape != (M,):
-            raise ValueError("extend_batch_banded_cuda: per-lane input of "
-                             f"shape {tuple(v.shape)}, expected ({M},)")
-        return v.to(torch.int32).contiguous()
-
-    ql, tl, hh = lane(qlen), lane(tlen), lane(h0)
+    ql, tl, hh = _lane_args("extend_batch_banded_cuda", dev, M, qlen, tlen,
+                            h0)
     out = torch.empty((5, M), dtype=torch.int32, device=dev)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     rc = lib.sw_extend_banded(
@@ -137,3 +148,60 @@ def extend_batch_adaptive(query, qlen, target, tlen, h0,
         v[bad] = r2[k]
         out[k] = v
     return out
+
+
+def extend_batch_rect(query, qlen, target, tlen, h0,
+                      o_del: int = 6, e_del: int = 1,
+                      o_ins: int = 6, e_ins: int = 1,
+                      match: int = 1, mismatch: int = 4, zdrop: int = 0):
+    """``extend_rect``: kernel K3 on CUDA, plain on CPU."""
+    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+              match=match, mismatch=mismatch, zdrop=zdrop)
+    if not query.is_cuda:
+        return extend_rect(query, qlen, target, tlen, h0, **kw)
+    return launch_rect("sw_extend_rect", query, qlen, target, tlen, h0,
+                       **kw)
+
+
+def launch_rect(entry: str, query, qlen, target, tlen, h0,
+                o_del: int = 6, e_del: int = 1, o_ins: int = 6,
+                e_ins: int = 1, match: int = 1, mismatch: int = 4,
+                zdrop: int = 0, nch: int = 0):
+    """Launch one of the rectangle kernels of ``csrc/sw_rect.cu``
+    (``entry`` is its C name; ``nch`` only for the interleaved one) on
+    CUDA tensors; raises on CPU tensors or shapes it does not take."""
+    dev = query.device
+    if dev.type != "cuda" or target.device != dev:
+        raise ValueError(f"{entry}: query and target must be on the same "
+                         "CUDA device")
+    lib = cuda_lib.load(RECT_LIB)
+    M, Lq = query.shape
+    if target.shape[0] != M:
+        raise ValueError(f"{entry}: batch mismatch")
+    Lt = target.shape[1]
+    check_rect_shape(entry, Lq, Lt)
+    if lib.sw_rect_max_width() != RECT_MAX_LT:
+        raise RuntimeError(f"{entry}: the built kernels take Lt <= "
+                           f"{lib.sw_rect_max_width()}, not {RECT_MAX_LT}")
+    if min(o_del, e_del, o_ins, e_ins) < 0:
+        raise ValueError(f"{entry}: negative gap penalty")
+    q8 = query.to(torch.int8).contiguous()
+    t8 = target.to(torch.int8).contiguous()
+    ql, tl, hh = _lane_args(entry, dev, M, qlen, tlen, h0)
+    out = torch.empty((5, M), dtype=torch.int32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    ptrs = [vp(x.data_ptr()) for x in (q8, ql, t8, tl, hh, out)]
+    tail = [ci(o_del), ci(e_del), ci(o_ins), ci(e_ins), ci(match),
+            ci(mismatch), ci(zdrop), cuda_lib.stream_ptr(dev)]
+    if nch:
+        T = -(-M // nch)
+        scratch = torch.empty(nch * 2 * (Lt + 1) * max(T, 1),
+                              dtype=torch.int32, device=dev)
+        rc = getattr(lib, entry)(*ptrs, vp(scratch.data_ptr()), ci(M),
+                                 ci(Lq), ci(Lt), ci(nch), *tail)
+    else:
+        rc = getattr(lib, entry)(*ptrs, ci(M), ci(Lq), ci(Lt), *tail)
+    cuda_lib.check(rc, entry)
+    cuda_lib.LAUNCHES[entry] += 1
+    return dict(score=out[0], qle=out[1], tle=out[2], gscore=out[3],
+                gtle=out[4])

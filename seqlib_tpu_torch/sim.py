@@ -8,6 +8,11 @@ substitutions at a fixed rate, a share with a 1-4 bp insertion or
 deletion, and a share with a random soft-clip flank.  Each read name
 carries its truth: ``<prefix><i>_<pos>_<strand>`` with ``pos`` the
 0-based leftmost reference base of the read's aligned part.
+
+``make_repeat_genome`` / ``make_repeat_reads`` are the port's copy of
+the hermetic repeat corpus of ``tests/regen_golden.py`` (131 kb contig
+'rep1', 1000 reads in 10 classes), whose golden SAM
+``tests/golden/sam_repeat_1k.txt`` the JAX package produced.
 """
 
 from __future__ import annotations
@@ -89,6 +94,86 @@ def simulate_reads(genome: str, n: int, seed: int = 11, length: int = 150,
             frag = _rc(frag)
         name = f"{prefix}{i}_{p + lead}_{'-' if rev[i] else '+'}"
         reads.append((name, frag.tobytes().decode()))
+    return reads
+
+
+def make_repeat_genome() -> str:
+    """Repeat-heavy synthetic genome, fully deterministic (seed 7):
+    random background with two exact copies of a 3 kb segment (20k,
+    60k), a 1%-divergent third copy (90k), a 50 x 60 bp tandem block
+    (120k) and a random tail; 131 kb."""
+    rng = np.random.default_rng(7)
+    g = rng.integers(0, 4, 131_000).astype(np.uint8)
+    seg = rng.integers(0, 4, 3000).astype(np.uint8)
+    g[20_000:23_000] = seg
+    g[60_000:63_000] = seg
+    div = seg.copy()
+    muts = rng.choice(3000, 30, replace=False)
+    div[muts] = (div[muts] + rng.integers(1, 4, 30)) % 4
+    g[90_000:93_000] = div
+    unit = rng.integers(0, 4, 60).astype(np.uint8)
+    g[120_000:123_000] = np.tile(unit, 50)
+    return BASES[g].tobytes().decode()
+
+
+def make_repeat_reads(genome: str):
+    """1000 deterministic 150 bp reads in 10 classes of 100: exact
+    forward, exact reverse complement, 2 mismatches, 4 bp deletion, 4 bp
+    insertion, 40 bp chimeric clip, exact-duplicate multimapper,
+    divergent copy (XA), tandem repeat, and seed-dense truncation
+    stress."""
+    rng = np.random.default_rng(11)
+    L = 150
+    reads = []
+
+    def sub(p):
+        return genome[p:p + L]
+
+    def rc(s):
+        return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+
+    def mutate(s, n):
+        b = np.frombuffer(s.encode(), dtype=np.uint8).copy()
+        for p in rng.choice(L, n, replace=False):
+            cur = b"ACGT".index(b[p])
+            b[p] = BASES[(cur + int(rng.integers(1, 4))) % 4]
+        return b.tobytes().decode()
+
+    def bg():
+        return int(rng.integers(0, 119_000 - L))
+
+    for i in range(100):
+        reads.append((f"rep_exact_{i}", sub(bg())))
+    for i in range(100):
+        reads.append((f"rep_rc_{i}", rc(sub(bg()))))
+    for i in range(100):
+        reads.append((f"rep_mm2_{i}", mutate(sub(bg()), 2)))
+    for i in range(100):
+        p = bg()
+        reads.append((f"rep_del4_{i}",
+                      genome[p:p + 70] + genome[p + 74:p + 74 + (L - 70)]))
+    for i in range(100):
+        p = bg()
+        ins = BASES[rng.integers(0, 4, 4)].tobytes().decode()
+        reads.append((f"rep_ins4_{i}",
+                      genome[p:p + 70] + ins + genome[p + 70:p + 70
+                                                      + (L - 74)]))
+    for i in range(100):
+        flank = BASES[rng.integers(0, 4, 40)].tobytes().decode()
+        reads.append((f"rep_clip_{i}", flank + sub(bg())[:110]))
+    for i in range(100):
+        reads.append((f"rep_dup_{i}",
+                      sub(20_000 + int(rng.integers(0, 3000 - L)))))
+    for i in range(100):
+        reads.append((f"rep_xa_{i}",
+                      sub(90_000 + int(rng.integers(0, 3000 - L)))))
+    for i in range(100):
+        reads.append((f"rep_tandem_{i}",
+                      sub(120_000 + int(rng.integers(0, 3000 - L)))))
+    for i in range(100):
+        p = 120_000 + int(rng.integers(0, 2800))
+        reads.append((f"rep_stress_{i}", genome[p:p + 50]
+                      + genome[p + 60:p + 110] + genome[p + 120:p + 170]))
     return reads
 
 

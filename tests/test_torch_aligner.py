@@ -6,13 +6,15 @@ in lower case or cut short; in a 64-read batch it stays on the fused
 path in the JAX package (no extension DP-row overflow, checked).  A
 second 64-read batch, of 50 truncation-stress reads, has more live
 regions than global-DP rows, so some take the host global pass
-(FLAG_OVER).
+(FLAG_OVER).  A batch of divergent-copy reads overflows the extension
+DP rows and goes through the classic path.
 ``align_batch_bam`` payloads (SAM text and BAM records) and per-read
 counts must be byte-identical; the port runs on the CPU through the
 plain versions of its kernels.
 """
 
 import collections
+import os
 
 import numpy as np
 import pytest
@@ -24,6 +26,8 @@ from seqlib_tpu.index import FMIndex as JaxFMIndex
 from seqlib_tpu_torch.align import BWAAligner, FusedOverflowError
 from seqlib_tpu_torch.align.device_full import FLAG_OVER, NFIELD
 from seqlib_tpu_torch.index import FMIndex
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -127,16 +131,25 @@ def test_align_stream_bam_equals_batch(aligners, corpus):
         assert np.array_equal(counts, want[1])
 
 
-def test_overflow_raises_never_drops(aligners, all_reads):
-    """The whole repeat-1k corpus in one batch overflows the extension
-    DP rows (the JAX package reruns it on its classic path): the port
-    raises a named error with the numbers and returns nothing."""
+def test_overflow_batch_sam_equals_golden(aligners, all_reads):
+    """60 divergent-copy (XA-class) reads of the repeat corpus in one
+    64-read batch overflow the extension DP rows: like the JAX package,
+    the port reruns the batch through its classic path and serialises
+    the records.  The classic path aligns each read on its own, so its
+    SAM equals these reads' lines of the JAX package's golden (made from
+    the whole corpus in one chunk), byte for byte."""
     _, ta = aligners
-    with pytest.raises(FusedOverflowError) as ei:
-        ta.align_batch_bam([s for _, s in all_reads],
-                           [n for n, _ in all_reads], sam=True)
-    err = ei.value
-    assert err.batch_size == 1024 and err.n_dp > err.limit == 768
+    part = all_reads[700:760]
+    ta.reset_stats()
+    payload, counts = ta.align_batch_bam([s for _, s in part],
+                                         [n for n, _ in part], sam=True)
+    assert ta.stats["fused_overflow_fallback"] == 2
+    names = {n for n, _ in part}
+    with open(os.path.join(HERE, "golden", "sam_repeat_1k.txt")) as f:
+        want = [l for l in f.read().splitlines()
+                if not l.startswith("#") and l.split("\t", 1)[0] in names]
+    assert payload.decode() == "".join(l + "\n" for l in want)
+    assert int(counts.sum()) == len(want) and counts.size == len(part)
 
 
 def test_long_read_raises(aligners, genome):

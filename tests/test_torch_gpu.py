@@ -15,12 +15,14 @@ import pytest
 import torch
 
 from seqlib_tpu_torch.align import BWAAligner
+from seqlib_tpu_torch.bench_sw import RECT_KERNELS
 from seqlib_tpu_torch.core.seq import encode_nt4
 from seqlib_tpu_torch.index import FMIndex
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, sw_cuda
 from seqlib_tpu_torch.ops.fm import DeviceFMIndex, _smem_machine, smem_machine
-from seqlib_tpu_torch.ops.sw import extend_batch
-from seqlib_tpu_torch.sim import make_genome, simulate_reads
+from seqlib_tpu_torch.ops.sw import extend_batch, extend_rect
+from seqlib_tpu_torch.sim import (make_genome, make_repeat_genome,
+                                  make_repeat_reads, simulate_reads)
 
 pytestmark = pytest.mark.gpu
 
@@ -123,7 +125,40 @@ def test_aligner_gpu_equals_cpu(cuda, genome):
     seqs, names = [s for _, s in corpus], [n for n, _ in corpus]
     cuda_lib.reset_launches()
     g = BWAAligner(idx, device=cuda).align_batch_bam(seqs, names, sam=True)
-    assert all(v > 0 for v in cuda_lib.LAUNCHES.values())
+    assert all(cuda_lib.LAUNCHES[k] > 0 for k in cuda_lib.MAIN_PATH)
     c = BWAAligner(idx, device="cpu").align_batch_bam(seqs, names, sam=True)
+    assert g[0] == c[0]
+    assert np.array_equal(g[1], c[1])
+
+
+@pytest.mark.parametrize("kernel,variant,Lt,zdrop", [
+    ("K3", "", 60, 0), ("K3", "", 250, 100), ("K3", "", 1000, 100),
+    ("K4", "", 60, 0), ("K4", "", 250, 100), ("K4", "", 700, 0),
+    ("K5", "nch=2", 250, 100), ("K5", "nch=3", 60, 100)])
+def test_rect_kernels_equal_plain(cuda, kernel, variant, Lt, zdrop):
+    k = RECT_KERNELS[kernel]
+    args = _lanes(Lt + zdrop, 300, min(150, Lt), Lt, cuda)
+    n0 = cuda_lib.LAUNCHES[k.counter]
+    got = k.fns[variant](*args, zdrop=zdrop)
+    assert cuda_lib.LAUNCHES[k.counter] == n0 + 1
+    want = extend_rect(*args, zdrop=zdrop)
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_overflow_batch_gpu_equals_cpu(cuda):
+    """The 1000-read repeat corpus in one batch overflows the DP rows and
+    reruns on the classic path on both devices."""
+    genome = make_repeat_genome()
+    reads = make_repeat_reads(genome)
+    idx = FMIndex.construct([("rep1", genome)])
+    seqs, names = [s for _, s in reads], [n for n, _ in reads]
+    out = {}
+    for dev in (cuda, "cpu"):
+        aln = BWAAligner(idx, device=dev)
+        out[str(dev)] = (aln.align_batch_bam(seqs, names, sam=True),
+                         aln.stats["fused_overflow_fallback"])
+    (g, gf), (c, cf) = out["cuda"], out["cpu"]
+    assert gf == cf == 2
     assert g[0] == c[0]
     assert np.array_equal(g[1], c[1])

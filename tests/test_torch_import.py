@@ -53,7 +53,11 @@ def test_port_imports_no_jax_nor_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for m in ("seqlib_tpu_torch.ops.fm_cuda", "seqlib_tpu_torch.ops.sw_cuda",
+              "seqlib_tpu_torch.ops.sw_variants", "seqlib_tpu_torch.bench_sw",
               "seqlib_tpu_torch.align.aligner", "seqlib_tpu_torch.native",
+              "seqlib_tpu_torch.core.cigar", "seqlib_tpu_torch.core.header",
+              "seqlib_tpu_torch.core.record",
+              "seqlib_tpu_torch.core.unaligned", "seqlib_tpu_torch.io.bam",
               "seqlib_tpu_torch.sim"):
         assert m in res["mods"], m
 
