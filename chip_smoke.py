@@ -7,8 +7,8 @@ last line is printed):
 
 1. device: name, capability, ``nvidia-smi`` name and power limit;
 2. build: every CUDA kernel library from ``seqlib_tpu_torch/csrc``, one
-   nvcc per source, all at once (nvcc's register and spill report is
-   printed);
+   nvcc per source, all at once (ptxas's registers and spills are
+   printed for every kernel and template instance);
 3. a seeded 4.6 Mbp reference (one contig with planted repeats) and
    32,768 simulated 150 bp reads; the port's FM-index and aligner;
 4. one 4096-read batch through ``align_batch_bam`` on the card, which
@@ -17,10 +17,17 @@ last line is printed):
    their plain PyTorch versions on the card, bit for bit (tolerance 0),
    on the recorded main-path inputs and on synthetic cases (random,
    near-identical and empty lanes, w in {32, 100}, zdrop in {0, 100},
-   all three branches of the adaptive-band wrapper), and timed: device
-   time per launch of calls queued behind a sleep kernel (``ms``) and
-   ms per call with the Python wrapper, back to back (``event_ms``),
-   both with CUDA events;
+   all three branches of the adaptive-band wrapper), on an edge phase
+   at the main path's widths (K1: M = 3072 and 3069 lanes, w in {1,
+   20, 57, 128}, lanes with qlen = 0, tlen < w, tlen = Lt, tlen > Lt
+   and NEG cells in row 0; K2: B = 4096 reads with N codes, empty and
+   inactive lanes, stack depth C in {1, 16}, reads of 960 bp at
+   L = 1024, and a truncating step cap), and timed: device time per
+   launch of calls queued behind a sleep kernel (``ms``, printed per
+   recorded call beside the earlier kernels' time for the same call
+   shape, run P2-E in PERF.md) and ms per
+   call with the Python wrapper, back to back (``event_ms``), both with
+   CUDA events;
 6. main path: 8 x 4096 reads through ``align_stream_bam`` on the card
    with the launch counters reset just before and read just after;
    the first batch's SAM must equal the port's CPU run byte for byte,
@@ -52,6 +59,9 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 
@@ -61,15 +71,16 @@ import torch
 from seqlib_tpu_torch import bench_sw
 from seqlib_tpu_torch.align import BWAAligner
 from seqlib_tpu_torch.bench_sw import (band_cells_needed, cuda_ms,
-                                       device_ms, max_abs_diff, roof_ms,
+                                       device_ms, k1_edge_inputs,
+                                       max_abs_diff, roof_ms,
                                        smi_name_power)
 from seqlib_tpu_torch.index import FMIndex
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, sw_cuda
 from seqlib_tpu_torch.ops.fm import _smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch
-from seqlib_tpu_torch.sim import (make_genome, make_repeat_genome,
-                                  make_repeat_reads, placement_rate,
-                                  simulate_reads)
+from seqlib_tpu_torch.sim import (edge_read_batch, make_genome,
+                                  make_repeat_genome, make_repeat_reads,
+                                  placement_rate, simulate_reads)
 
 GENOME_BP = 4_600_000
 BATCH = 4096
@@ -88,6 +99,13 @@ K1_OPS_PER_CELL = 14               # int32 ops per band cell
 # by that much.
 K2_OPS_PER_WORD = 7 + 4 * 8
 K2_OPS_PER_EXT = 32
+# Device ms per call of the earlier, one-thread-per-lane K1 and K2 on the
+# same call shapes (PERF.md, chip run P2-E, H100 80GB HBM3 at 700 W),
+# printed beside this run's times: K1 by (M, w), K2 by (B, max_seeds);
+# a shape the batch calls twice lists its calls in the batch's order
+P2E_K1_MS = {(3072, 32): [0.3635, 0.4437], (65, 100): [0.6171],
+             (80, 100): [0.7021], (256, 32): [0.3643, 0.1231]}
+P2E_K2_MS = {(4096, 16): [1.6698], (4096, 4): [0.5407]}
 
 
 def log(*a):
@@ -173,6 +191,118 @@ def check_adaptive(gen, dev):
                                  f"extend_batch(band={w}) (max |diff| {err})")
         log(f"K1 adaptive branch {branch}: equal to extend_batch(band={w}) "
             "(tolerance 0)")
+
+
+def _kernel_name(mangled: str) -> str:
+    """kernel or kernel<S> from an Itanium-mangled entry name: the last
+    <length><identifier> of its (nested) name, then an int template
+    argument if there is one."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while (m := re.match(r"\d+", mangled[pos:])):
+        pos += m.end()
+        name = mangled[pos:pos + int(m.group())]
+        pos += len(name)
+    tm = re.match(r"ILi(\d+)E", mangled[pos:])
+    return name + (f"<{tm.group(1)}>" if tm else "")
+
+
+def ptxas_report(text: str) -> list[tuple[str, int, int, int, int]]:
+    """(kernel, registers, stack-frame bytes, spill-store bytes,
+    spill-load bytes) per entry function of nvcc's ``-Xptxas -v``
+    output; a template instance is named kernel<S>."""
+    out, name, spill = [], None, (0, 0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            spill = (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            spill = tuple(int(g) for g in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
+
+
+def sass_counts() -> dict[str, int]:
+    """Static SASS instruction count of every kernel (template instance)
+    in the built libraries, from ``cuobjdump -sass``; empty where the
+    toolkit has no cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return {}
+    out: dict[str, int] = {}
+    for lib in cuda_lib.LIBRARIES:
+        text = subprocess.run([exe, "-sass", cuda_lib._so_path(lib)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        name = None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = f"{lib}:{_kernel_name(m.group(1))}"
+                out[name] = 0
+            elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+                out[name] += 1
+    return out
+
+
+def earlier_ms(table: dict, key, seen: dict) -> str:
+    """The earlier kernel's time for the n-th call of this shape (run
+    P2-E), or why there is none."""
+    n = seen.get(key, 0)
+    seen[key] = n + 1
+    times = table.get(key, [])
+    return (f"earlier kernel (P2-E) {times[n]:.4f} ms" if n < len(times)
+            else "no earlier time for this shape")
+
+
+def check_edges(dev, fm, genome: str, card: str) -> None:
+    """K1 and K2 at their edges, at the main path's widths, held against
+    the plain versions on the card (tolerance 0)."""
+    Lq = 160
+    n = 0
+    for w, M in ((1, 3072), (20, 3069), (57, 3072), (128, 3069)):
+        args = k1_edge_inputs(dev, M, Lq, Lq + w + 1, w, seed=w)
+        for zdrop in (0, 100):
+            check_k1(args, w, zdrop, f"edge M={M}")
+            n += 1
+    log(f"K1 edge phase: {n} calls (M 3072/3069, w in {{1, 20, 57, 128}}, "
+        "zdrop in {0, 100}; lanes with qlen = 0, tlen < w, tlen = Lt, "
+        "tlen > Lt, h0 < 6): bit-equal (tolerance 0)")
+    B = 4096
+    cases = [  # (L, C, p3_seeds, max_rounds, step_cap)
+        (160, 1, 8, 160, 656), (160, 16, 8, 160, 656),
+        (160, 16, 0, 160, 40),          # truncates: n_dropped
+        (160, 1, 0, 1, 328),            # the re-seed call's shape
+        (1024, 8, 8, 1024, 4 * 1024 + 16)]
+    for L, C, p3, rounds, cap in cases:
+        reads, lens, active = edge_read_batch(genome, B, L, seed=L + C)
+        rng = np.random.default_rng(C)
+        x0 = (rng.integers(0, L, B) if rounds == 1 else np.zeros(B))
+        mi = (rng.integers(1, 4, B) if rounds == 1 else np.ones(B))
+        kw = dict(reads=reads, lens=lens, x0=x0.astype(np.int32),
+                  min_intv=mi.astype(np.int32), active=active)
+        kw = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in kw.items()}
+        kw.update(max_seeds=16 if rounds > 1 else 4, min_seed_len=19, C=C,
+                  max_rounds=rounds, step_cap=cap, p3_seeds=p3,
+                  p3_max_intv=20)
+        keys = K2_KEYS_BASE + (K2_KEYS_P3 if p3 else ())
+        got = fm_cuda.smem_machine_cuda(fm, **kw)
+        want = _smem_machine(fm, **kw)
+        err = max_abs_diff(got, want, keys)
+        dropped = int(want["n_dropped"].sum())
+        if err or (cap == 40 and dropped == 0):
+            raise AssertionError(f"K2 edge L={L} C={C} p3={p3} cap={cap}: "
+                                 f"max |diff| {err}, {dropped} dropped")
+        log(f"K2 edge B={B} L={L} C={C} p3={p3} rounds={rounds} cap={cap}: "
+            f"bit-equal (tolerance 0; {dropped} lanes dropped, "
+            f"{int((~kw['active']).sum())} inactive) [{card}]")
 
 
 def bound_fields(bounds) -> dict:
@@ -462,9 +592,11 @@ def main() -> int:
     t0 = time.time()
     reports = cuda_lib.build_all()
     for k, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas[{k}]: {line.strip()}")
+        for kern, regs, frame, st, ld in ptxas_report(rep):
+            log(f"ptxas[{k}]: {kern}: {regs} registers, stack frame {frame}"
+                f" B, spill stores {st} B, spill loads {ld} B")
+    for k, n in sass_counts().items():
+        log(f"sass: {k}: {n} instructions")
     log(f"build: {time.time() - t0:.1f} s for {len(reports)} kernel "
         f"libraries ({', '.join(reports)})")
 
@@ -502,8 +634,9 @@ def main() -> int:
     log("K1 synthetic M=3072 L=160 w in {32,100} zdrop in {0,100}: "
         "bit-equal (tolerance 0)")
     check_adaptive(gen, dev)
-    k1_ms, k1_ev, k1_plain, k1_bound, k1_err, k1_shapes = \
-        [], [], [], [], 0, set()
+    check_edges(dev, rec.k2[0][0], genome, card)
+    k1_ms, k1_ev, k1_plain, k1_bound, k1_err, k1_shapes, k1_one = \
+        [], [], [], [], 0, set(), []
     for r in rec.k1:
         args, kw = k1_call_kwargs(r)
         got = sw_cuda.extend_batch_banded_cuda(*args, **kw)
@@ -511,6 +644,13 @@ def main() -> int:
         k1_err = max(k1_err, max_abs_diff(got, want))
         k1_ms.append(device_ms(
             lambda: sw_cuda.extend_batch_banded_cuda(*args, **kw), 5))
+        # the lane with the most rows, alone on the card: one warp's
+        # latency per row, against the whole call's time
+        m = int(torch.argmax(want["rows"]))
+        one = [a[m:m + 1] for a in args]
+        k1_one.append((device_ms(
+            lambda: sw_cuda.extend_batch_banded_cuda(*one, **kw), 5),
+            int(want["rows"][m])))
         k1_ev.append(cuda_ms(
             lambda: sw_cuda.extend_batch_banded_cuda(*args, **kw), 5))
         k1_plain.append(cuda_ms(lambda: extend_batch(*args, **kw), 1))
@@ -521,11 +661,17 @@ def main() -> int:
         raise AssertionError(f"K1 differs on main-path inputs ({k1_err})")
     log(f"K1 main-path inputs ({len(rec.k1)} calls, shapes {sorted(k1_shapes)}): "
         "bit-equal (tolerance 0)")
-    for r, ms, ev, pm, bd in zip(rec.k1, k1_ms, k1_ev, k1_plain, k1_bound):
+    seen: dict = {}
+    for r, ms, ev, pm, bd, (ms1, rows1) in zip(rec.k1, k1_ms, k1_ev, k1_plain,
+                                              k1_bound, k1_one):
         args, kw = k1_call_kwargs(r)
-        log(f"  K1 M={args[0].shape[0]} w={kw['band']}: {ms:.4f} ms device "
-            f"time ({ev:.3f} ms/call with the wrapper; plain {pm:.1f} ms, "
-            f"bound {bd[0]:.4f} ms, {bd[1]}) [{card}]")
+        M = args[0].shape[0]
+        log(f"  K1 M={M} w={kw['band']}: {ms:.4f} ms device time, "
+            f"{earlier_ms(P2E_K1_MS, (M, kw['band']), seen)} "
+            f"({ev:.3f} ms/call with the wrapper; plain {pm:.1f} ms, "
+            f"bound {bd[0]:.4f} ms, {bd[1]}; its longest lane alone "
+            f"{ms1:.4f} ms for {rows1} rows = {1e3 * ms1 / max(rows1, 1):.3f}"
+            f" us a row) [{card}]")
     kernels["sw_extend"] = dict(
         name="sw_extend_banded", route="cuda",
         source="seqlib_tpu_torch/csrc/sw_extend.cu",
@@ -540,6 +686,7 @@ def main() -> int:
     log(f"dependent load through {rec.k2[0][0].blocks.shape[0]} block rows "
         f"(one-thread chase, __ldg): {load_ns:.1f} ns [{card}]")
     k2_ms, k2_ev, k2_plain, k2_bound, k2_err = [], [], [], [], 0
+    seen = {}
     for r in rec.k2:
         fm, kw = k2_call_kwargs(r)
         keys = K2_KEYS_BASE + (K2_KEYS_P3 if kw.get("p3_seeds") else ())
@@ -554,11 +701,18 @@ def main() -> int:
                                5))
         k2_ev.append(cuda_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw), 5))
         k2_bound.append(k2_bound_ms(fm, kw, work))
+        # the lane with the most steps, alone on the card
+        m = int(torch.argmax(work["steps"]))
+        kw1 = {k: v[m:m + 1] if torch.is_tensor(v) else v
+               for k, v in kw.items()}
+        ms1 = device_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw1), 5)
+        steps1 = int(work["steps"][m])
         n_ext = int(work["exts"].sum())
         dep_ms = 1e-6 * load_ns * int(work["rounds"].max())
         log(f"  K2 B={kw['reads'].shape[0]} L={kw['reads'].shape[1]} "
             f"S={kw['max_seeds']} p3={kw.get('p3_seeds', 0)} "
-            f"cap={kw['step_cap']}: {k2_ms[-1]:.4f} ms device time "
+            f"cap={kw['step_cap']}: {k2_ms[-1]:.4f} ms device time, "
+            f"{earlier_ms(P2E_K2_MS, (kw['reads'].shape[0], kw['max_seeds']), seen)} "
             f"({k2_ev[-1]:.3f} ms/call with the wrapper; plain "
             f"{k2_plain[-1]:.0f} ms, bound {k2_bound[-1][0]:.4f} ms, "
             f"{k2_bound[-1][1]}; "
@@ -567,7 +721,9 @@ def main() -> int:
             f"{n_ext} bi-extensions, "
             f"{int(work['rank_words'].sum()) / max(2 * n_ext, 1):.2f} words "
             f"per rank, longest lane {int(work['rounds'].max())} dependent "
-            "rounds")
+            f"rounds; the lane with the most steps alone: {ms1:.4f} ms for "
+            f"{steps1} steps = {1e3 * ms1 / max(steps1, 1):.3f} us a step, "
+            f"{1e6 * ms1 / max(steps1, 1) / load_ns:.1f} dependent loads")
     if k2_err:
         raise AssertionError(f"K2 differs on main-path inputs ({k2_err})")
     # a step cap that truncates lanes: n_dropped must agree too

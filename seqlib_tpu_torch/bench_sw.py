@@ -194,6 +194,39 @@ def edge_inputs(dev, seed: int = 1):
     return _tensors(dev, q, ql, t, tl, h0)
 
 
+def set_k1_edges(ql, tl, h0, w: int, Lt: int, rng) -> None:
+    """Make lanes (numpy arrays, changed in place) edge cases of kernel
+    K1's band of width w, by lane index mod 8: 0 has qlen = 0, 1
+    tlen < w, 2 tlen = Lt, 3 tlen > Lt (the DP reads min(tlen, Lt)), 4
+    h0 in 0..5, so row 0 has NEG cells (h0 - o_del - e_del*j < 0)."""
+    e = np.arange(ql.shape[0]) % 8
+    ql[e == 0] = 0
+    tl[e == 1] = rng.integers(0, w, int((e == 1).sum()))
+    tl[e == 2] = Lt
+    tl[e == 3] = Lt + 7
+    h0[e == 4] = rng.integers(0, 6, int((e == 4).sum()))
+
+
+def k1_edge_inputs(dev, M: int, Lq: int, Lt: int, w: int, seed: int = 0):
+    """Random lanes (codes 0-4), near-identical ones in every other lane
+    (target = query with two substitutions), and K1's edge lanes
+    (``set_k1_edges``)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 5, (M, Lq)).astype(np.int8)
+    t = rng.integers(0, 5, (M, Lt)).astype(np.int8)
+    ql = rng.integers(1, Lq + 1, M).astype(np.int32)
+    tl = rng.integers(0, Lt + 1, M).astype(np.int32)
+    h0 = rng.integers(6, 60, M).astype(np.int32)
+    for m in range(0, M, 2):
+        n = min(int(ql[m]), Lt)
+        t[m, :n] = q[m, :n]
+        tl[m] = max(int(tl[m]), n)
+        for p in rng.integers(0, max(n, 1), 2):
+            t[m, p] = (t[m, p] + 1) % 4
+    set_k1_edges(ql, tl, h0, w, Lt, rng)
+    return _tensors(dev, q, ql, t, tl, h0)
+
+
 def rect_cells(args, rows: torch.Tensor) -> int:
     """DP cells these lanes need: the rows each lane computed (from the
     plain version) times its tlen + 1 columns."""

@@ -57,10 +57,10 @@
 #include <climits>
 #include <cstdint>
 
+#include "warp_dp.cuh"
+
 namespace {
 
-constexpr int NEG = -0x40000000;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_SLOTS = 32;  // columns per lane <= 32 * 32 = 1024
 
 struct Params {
@@ -84,63 +84,6 @@ __device__ __forceinline__ int row0(int j, int h0, int tl, int o_del,
   int v = j == 0 ? h0 : h0 - (o_del + e_del * j);
   if (j > 0 && v < 0) v = NEG;
   return j > tl ? NEG : v;
-}
-
-// (v, idx) <- the larger v, then the smaller idx, over the warp
-__device__ __forceinline__ void warp_argmax(int& v, int& idx) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ov = __shfl_xor_sync(FULL, v, off);
-    const int oi = __shfl_xor_sync(FULL, idx, off);
-    if (ov > v || (ov == v && oi < idx)) {
-      v = ov;
-      idx = oi;
-    }
-  }
-}
-
-// the warp's lane-level epilogue shared by K3 and K4: reduce the
-// per-thread best cells and write the five outputs
-__device__ __forceinline__ void warp_finish(const Params& p, int lane,
-                                            int best, int bi, int bj,
-                                            int gscore, int gtle) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ob = __shfl_xor_sync(FULL, best, off);
-    const int oi = __shfl_xor_sync(FULL, bi, off);
-    const int oj = __shfl_xor_sync(FULL, bj, off);
-    if (ob > best || (ob == best && (oi < bi || (oi == bi && oj < bj)))) {
-      best = ob;
-      bi = oi;
-      bj = oj;
-    }
-  }
-  if ((threadIdx.x & 31) == 0) {
-    const bool found = best > 0;
-    p.out[lane] = found ? best : 0;
-    p.out[p.M + lane] = found ? bi + 1 : 0;
-    p.out[2 * p.M + lane] = found ? bj : 0;
-    p.out[3 * p.M + lane] = gscore;
-    p.out[4 * p.M + lane] = gtle;
-  }
-}
-
-// z-drop decision for one computed row (identical on every thread of the
-// warp once the row max has been reduced)
-__device__ __forceinline__ bool zdrop_stop(int i, int m, int mj, int& zbest,
-                                           int& zbi, int& zbj, int e_del,
-                                           int e_ins, int zdrop) {
-  const bool better = m > zbest;
-  const int di = i - zbi, dj = mj - zbj;
-  const int gap = abs(di - dj);
-  const int pen = (di > dj ? e_del : e_ins) * gap;
-  const bool stop = (!better && zbest - m - pen > zdrop) || m <= 0;
-  if (better) {
-    zbest = m;
-    zbi = i;
-    zbj = mj;
-  }
-  return stop;
 }
 
 // ---------------------------------------------------------------------------
@@ -233,7 +176,7 @@ __global__ void __launch_bounds__(128) rect_strip_kernel(Params p) {
         break;
     }
   }
-  warp_finish(p, lane, best, bi, bj, gscore, gtle);
+  warp_finish(p.out, p.M, lane, best, bi, bj, gscore, gtle);
 }
 
 // ---------------------------------------------------------------------------
@@ -317,7 +260,7 @@ __global__ void __launch_bounds__(128) rect_blocked_kernel(Params p) {
         break;
     }
   }
-  warp_finish(p, lane, best, bi, bj, gscore, gtle);
+  warp_finish(p.out, p.M, lane, best, bi, bj, gscore, gtle);
 }
 
 // ---------------------------------------------------------------------------

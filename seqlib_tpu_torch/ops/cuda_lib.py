@@ -1,6 +1,7 @@
 """Build, load and count the hand-written CUDA kernels of the port.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers) has a
+plain C interface and is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``seqlib_tpu_torch/build/lib<name>.so`` at first use,
 then loaded with ctypes: pointers go in as ``c_void_p``, the stream is
@@ -75,7 +76,10 @@ def _start_build(name: str):
     the library is already up to date."""
     src = os.path.join(CSRC, f"{name}.cu")
     so = _so_path(name)
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    newest = max(os.path.getmtime(os.path.join(CSRC, f))
+                 for f in os.listdir(CSRC) if f == f"{name}.cu"
+                 or f.endswith(".cuh"))
+    if os.path.exists(so) and os.path.getmtime(so) >= newest:
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -97,6 +97,36 @@ def simulate_reads(genome: str, n: int, seed: int = 11, length: int = 150,
     return reads
 
 
+def edge_read_batch(genome: str, B: int, L: int, seed: int = 0):
+    """B simulated reads as nt4 codes at the edges of the SMEM machine:
+    uint8 [B, L] (4 = N or padding), lens int32 [B], active bool [B].
+    Reads are L - L // 16 bases long; every 5th is cut to a random
+    length >= 1, every 7th carries a single N and a run of three N, every
+    13th is empty (length 0) and every 11th is inactive."""
+    rng = np.random.default_rng(seed)
+    n = L - L // 16
+    code = np.full(256, 4, np.uint8)
+    code[list(b"ACGT")] = [0, 1, 2, 3]
+    reads = np.full((B, L), 4, np.uint8)
+    lens = np.zeros(B, np.int32)
+    for i, (_, s) in enumerate(simulate_reads(genome, B, seed=seed,
+                                              length=n)):
+        r = code[np.frombuffer(s.encode(), np.uint8)]
+        reads[i, :r.size] = r
+        lens[i] = r.size
+    idx = np.arange(B)
+    cut = idx % 5 == 4
+    lens[cut] = rng.integers(1, n + 1, int(cut.sum()))
+    for i in np.flatnonzero(idx % 7 == 3):
+        a, b = rng.integers(0, n - 3, 2)
+        reads[i, a] = 4
+        reads[i, b:b + 3] = 4
+    lens[idx % 13 == 6] = 0
+    reads[np.arange(L)[None, :] >= lens[:, None]] = 4
+    active = (lens > 0) & (idx % 11 != 5)
+    return reads, lens, active
+
+
 def make_repeat_genome() -> str:
     """Repeat-heavy synthetic genome, fully deterministic (seed 7):
     random background with two exact copies of a 3 kb segment (20k,

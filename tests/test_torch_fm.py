@@ -117,18 +117,25 @@ MACHINE_KEYS = ("qbeg", "qend", "intv_l", "intv_sz", "n_seeds", "n_dropped")
 P3_KEYS = ("p3_qbeg", "p3_qend", "p3_intv_l", "p3_intv_sz", "p3_n")
 
 
-@pytest.mark.parametrize("p3_seeds,step_cap", [
-    (0, 656), (8, 656),
-    (8, 96),     # truncates lanes: n_dropped counts them
+@pytest.mark.parametrize("p3_seeds,step_cap,C", [
+    (0, 656, 8), (8, 656, 8),
+    (8, 96, 8),  # truncates lanes: n_dropped counts them
+    # kernel K2's stack edges: C = 1 wraps at every push, 16 is its most
+    (8, 656, 1), (0, 656, 16),
 ])
-def test_smem_machine_equals_jax(indexes, batch, p3_seeds, step_cap):
+def test_smem_machine_equals_jax(indexes, batch, p3_seeds, step_cap, C):
+    """_smem_machine == the JAX package's, with an N read, a short read,
+    an empty lane and an inactive lane in the batch."""
     jf, tf = indexes
     enc, lens = batch
     B, L = enc.shape
+    lens = lens.copy()
+    lens[6] = 0                 # an empty lane
     x0 = np.zeros(B, np.int32)
     mi = np.ones(B, np.int32)
     act = lens > 0
-    static = dict(max_seeds=16, min_seed_len=19, C=8, max_rounds=L,
+    act[7] = False              # an inactive lane
+    static = dict(max_seeds=16, min_seed_len=19, C=C, max_rounds=L,
                   step_cap=step_cap, p3_seeds=p3_seeds, p3_max_intv=20)
     want = _jax_machine(**static)(jf, jnp.asarray(enc), jnp.asarray(lens),
                                   jnp.asarray(x0), jnp.asarray(mi),

@@ -15,14 +15,14 @@ import pytest
 import torch
 
 from seqlib_tpu_torch.align import BWAAligner
-from seqlib_tpu_torch.bench_sw import RECT_KERNELS
-from seqlib_tpu_torch.core.seq import encode_nt4
+from seqlib_tpu_torch.bench_sw import RECT_KERNELS, k1_edge_inputs
 from seqlib_tpu_torch.index import FMIndex
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, sw_cuda
 from seqlib_tpu_torch.ops.fm import DeviceFMIndex, _smem_machine, smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch, extend_rect
-from seqlib_tpu_torch.sim import (make_genome, make_repeat_genome,
-                                  make_repeat_reads, simulate_reads)
+from seqlib_tpu_torch.sim import (edge_read_batch, make_genome,
+                                  make_repeat_genome, make_repeat_reads,
+                                  simulate_reads)
 
 pytestmark = pytest.mark.gpu
 
@@ -57,10 +57,18 @@ def _lanes(seed, M, Lq, Lt, dev):
     return [torch.from_numpy(a).to(dev) for a in (q, ql, t, tl, h0)]
 
 
-@pytest.mark.parametrize("w,zdrop", [(32, 0), (32, 100), (100, 0),
-                                     (100, 100), (8, 23)])
-def test_k1_equals_plain(cuda, w, zdrop):
-    args = _lanes(w + zdrop, 512, 160, 160 + w + 1, cuda)
+@pytest.mark.parametrize("w,zdrop,M", [
+    (32, 0, 512), (32, 100, 512), (100, 0, 512), (100, 100, 512),
+    (8, 23, 512),
+    # the band's edges: w = 1, the widest band, 2w + 2 not a multiple of
+    # 32, and M not a multiple of the kernel's 4 lanes per block
+    (1, 0, 509), (1, 100, 510), (128, 0, 511), (128, 100, 509),
+    (20, 100, 511), (57, 0, 510)])
+def test_k1_equals_plain(cuda, w, zdrop, M):
+    """K1 == extend_batch(band=w) on random, near-identical and edge
+    lanes (qlen = 0, tlen < w, tlen = Lt, tlen > Lt, h0 small enough for
+    NEG cells in row 0)."""
+    args = k1_edge_inputs(cuda, M, 160, 160 + w + 1, w, seed=w + zdrop)
     n0 = cuda_lib.LAUNCHES["sw_extend"]
     got = sw_cuda.extend_batch_banded(*args, band=w, zdrop=zdrop)
     assert cuda_lib.LAUNCHES["sw_extend"] == n0 + 1
@@ -77,24 +85,26 @@ def test_k1_adaptive_equals_full_band(cuda):
         assert torch.equal(got[k], want[k]), k
 
 
-@pytest.mark.parametrize("p3_seeds,step_cap,max_rounds", [
-    (8, 656, 160), (0, 656, 160), (8, 60, 160), (0, 328, 1)])
-def test_k2_equals_plain(cuda, genome, p3_seeds, step_cap, max_rounds):
+@pytest.mark.parametrize("p3_seeds,step_cap,max_rounds,C,L", [
+    (8, 656, 160, 8, 160), (0, 656, 160, 8, 160), (8, 60, 160, 8, 160),
+    (0, 328, 1, 8, 160),
+    # the stack's edges (C = 1 wraps at every push, C = 16 is the most
+    # the kernel holds) and the longest read the fused path takes
+    (8, 656, 160, 1, 160), (8, 656, 160, 16, 160), (0, 328, 1, 1, 160),
+    (8, 4112, 1024, 8, 1024)])
+def test_k2_equals_plain(cuda, genome, p3_seeds, step_cap, max_rounds, C, L):
+    """K2 == _smem_machine on simulated reads with N codes, empty and
+    inactive lanes."""
     fm = DeviceFMIndex.from_host(FMIndex.construct([("rep1", genome)]),
                                  device=cuda)
-    reads = [s for _, s in simulate_reads(genome, 256, seed=4)]
-    enc = np.full((len(reads), 160), 4, np.uint8)
-    lens = np.zeros(len(reads), np.int32)
-    for i, s in enumerate(reads):
-        enc[i, :len(s)] = encode_nt4(s)
-        lens[i] = len(s)
+    B = 256 if L <= 160 else 64
+    enc, lens, active = edge_read_batch(genome, B, L, seed=4)
     rng = np.random.default_rng(1)
-    B = len(reads)
-    x0 = rng.integers(0, 150, B) if max_rounds == 1 else np.zeros(B)
+    x0 = rng.integers(0, L, B) if max_rounds == 1 else np.zeros(B)
     mi = rng.integers(1, 4, B) if max_rounds == 1 else np.ones(B)
     args = [torch.from_numpy(np.asarray(a)).to(cuda) for a in
-            (enc, lens, x0.astype(np.int32), mi.astype(np.int32), lens > 0)]
-    kw = dict(max_seeds=16 if max_rounds > 1 else 4, min_seed_len=19, C=8,
+            (enc, lens, x0.astype(np.int32), mi.astype(np.int32), active)]
+    kw = dict(max_seeds=16 if max_rounds > 1 else 4, min_seed_len=19, C=C,
               max_rounds=max_rounds, step_cap=step_cap, p3_seeds=p3_seeds,
               p3_max_intv=20)
     n0 = cuda_lib.LAUNCHES["smem_machine"]
@@ -104,6 +114,8 @@ def test_k2_equals_plain(cuda, genome, p3_seeds, step_cap, max_rounds):
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+    if step_cap == 60:
+        assert int(want["n_dropped"].sum()) > 0
 
 
 def test_load_chase_follows_the_chain(cuda):

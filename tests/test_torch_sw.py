@@ -18,6 +18,7 @@ import torch
 from seqlib_tpu.align import device_pipeline as jdp
 from seqlib_tpu.ops import sw as jsw
 from seqlib_tpu_torch.align import device_pipeline as tdp
+from seqlib_tpu_torch.bench_sw import set_k1_edges
 from seqlib_tpu_torch.ops import sw as tsw
 from seqlib_tpu_torch.ops import sw_cuda
 from test_sw_banded import _scalar_banded
@@ -67,10 +68,19 @@ def _both(fn_j, fn_t, arrays, **kw):
 
 @pytest.mark.parametrize("band,zdrop", [
     (0, 0), (0, 100), (8, 0), (12, 23), (32, 100), (100, 0), (100, 100),
+    # kernel K1's edges: the narrowest band and the widest it takes
+    (1, 0), (1, 100), (128, 0), (128, 100),
 ])
 def test_extend_batch_equals_jax(band, zdrop):
+    """extend_batch == the JAX package's, on random, near-identical and
+    qlen = 0 lanes; with band > 0 also on kernel K1's edge lanes
+    (``set_k1_edges``)."""
     Lq = 96 if band >= 32 else 48
     arrays = _lanes(band * 100 + zdrop, 96, Lq, Lq + max(band, 16) + 1)
+    if band > 0:
+        q, ql, t, tl, h0 = arrays
+        set_k1_edges(ql, tl, h0, band, t.shape[1],
+                     np.random.default_rng(band + zdrop))
     want, got = _both(jsw.extend_batch, tsw.extend_batch, arrays,
                       band=band, zdrop=zdrop)
     for k in KEYS:
