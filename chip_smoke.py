@@ -44,13 +44,35 @@ last line is printed):
    the non-``#`` lines of ``tests/golden/sam_repeat_1k.txt`` (the JAX
    package's output) byte for byte, and ``align_batch_bam(sam=True)``
    on the same batch must equal the records' ``to_sam`` lines;
-9. rectangle kernels K3, K4, K5 (``bench_sw.run``): each held against
+9. long reads: 128 simulated reads of 1.5-10 kb (0.2% substitutions,
+   one 1-4 bp indel per kb, 10% with a 200-400 bp random 3' tail, both
+   strands) on the main reference, in batches of 32 through
+   ``align_batch`` (the long-read path) inside the kernel recorder,
+   launch counters reset just before and read just after: every
+   recorded K1 and K2 call held against its plain version (tolerance 0)
+   and timed beside its bound; the first 8 reads of <= 3 kb against the
+   port's CPU run, byte for byte; >= 98% placed within 5 bp of the
+   simulated start of their genomic part; reads/s, bases/s, stage times
+   and peak device memory;
+10. pairs: 2 x 4096 simulated pairs (2 x 150 bp, insert 400 +- 40; mate
+   2 of 2% mutated at period 8, so it has no seed) through
+   ``align_pairs``, counters reset just before and read just after: the
+   first 512 pairs against a CPU run given the card's insert-size
+   statistics, byte for byte; >= 95% of the period-8 mates rescued
+   within 20 bp, flagged proper; pairs/s and the proper-pair share;
+11. long edges: K1 at Lq 4095-6200 (w 32/100, zdrop 0/100) and 30,000
+   (four lanes' codes past 227 KB of shared memory, read from global
+   memory), K2 at L 12,289 and 60,000, each against its plain version
+   on the card (tolerance 0) and timed;
+12. rectangle kernels K3, K4, K5 (``bench_sw.run``): each held against
    its plain version on the card, tolerance 0, on bench.py's inputs, the
    variant sweep's and a set of short and empty lanes, at zdrop 0 and
    100 (K5: 100 only); then timed on the extension bench path (device
    time per launch and per-call wrapper time, as for K1 and K2), whose
    launches they report;
-10. one JSON line of all five kernels' numbers.
+13. one JSON line of all five kernels' numbers; K1's and K2's carry
+   their launches on each path (``by_path``: main, overflow, long,
+   paired), and on the long path their mean device ms and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -70,9 +92,10 @@ import torch
 
 from seqlib_tpu_torch import bench_sw
 from seqlib_tpu_torch.align import BWAAligner
+from seqlib_tpu_torch.core.seq import revcomp
 from seqlib_tpu_torch.bench_sw import (band_cells_needed, cuda_ms,
                                        device_ms, k1_edge_inputs,
-                                       max_abs_diff, roof_ms,
+                                       k1_long_inputs, max_abs_diff, roof_ms,
                                        smi_name_power)
 from seqlib_tpu_torch.index import FMIndex
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, sw_cuda
@@ -80,12 +103,25 @@ from seqlib_tpu_torch.ops.fm import _smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch
 from seqlib_tpu_torch.sim import (edge_read_batch, make_genome,
                                   make_repeat_genome, make_repeat_reads,
-                                  placement_rate, simulate_reads)
+                                  placement_rate, simulate_long_reads,
+                                  simulate_pairs, simulate_reads)
 
 GENOME_BP = 4_600_000
 BATCH = 4096
 N_BATCHES = 8
 READ_BP = 150
+LONG_READS = 128                   # long-read phase: 1.5-10 kb reads
+LONG_BATCH = 32
+PAIR_BATCH = 4096                  # paired phase: 2 x 4096 pairs
+PAIR_BATCHES = 2
+PAIR_CHECK = 512                   # pairs held against the CPU run
+# K1 at long shapes (Lq, w, zdrop): across the 4096 rows of the JAX
+# package's packed tie-break, and four lanes' codes across 48 KB (Lq
+# 6200) and 227 KB (Lq 30,000) of shared memory; K2 at read lengths
+# whose four reads cross 48 KB and 227 KB
+K1_LONG_EDGES = [(Lq, w, z) for Lq in (4095, 4096, 4097, 6200)
+                 for w in (32, 100) for z in (0, 100)] + [(30_000, 100, 100)]
+K2_LONG_EDGES = (12_289, 60_000)
 GOLDEN_REPEAT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tests", "golden", "sam_repeat_1k.txt")
 K1_OPS_PER_CELL = 14               # int32 ops per band cell
@@ -194,17 +230,18 @@ def check_adaptive(gen, dev):
 
 
 def _kernel_name(mangled: str) -> str:
-    """kernel or kernel<S> from an Itanium-mangled entry name: the last
-    <length><identifier> of its (nested) name, then an int template
-    argument if there is one."""
+    """kernel or kernel<S, ...> from an Itanium-mangled entry name: the
+    last <length><identifier> of its (nested) name, then its int and bool
+    template arguments if it has any."""
     pos = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while (m := re.match(r"\d+", mangled[pos:])):
         pos += m.end()
         name = mangled[pos:pos + int(m.group())]
         pos += len(name)
-    tm = re.match(r"ILi(\d+)E", mangled[pos:])
-    return name + (f"<{tm.group(1)}>" if tm else "")
+    tm = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    args = re.findall(r"L[ib](\d+)E", tm.group(1)) if tm else []
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def ptxas_report(text: str) -> list[tuple[str, int, int, int, int]]:
@@ -432,14 +469,40 @@ class StageTimer:
          "host: native SAM emission"),
     )
 
-    def __init__(self):
+    # the long-read path's stages (align_batch on reads over 1024 bp)
+    LONG_TARGETS = (
+        ("seqlib_tpu_torch.align.aligner", None, "seed_and_locate",
+         "seed: K2 + re-seed + SA locate"),
+        ("seqlib_tpu_torch.align.aligner", None, "chain_batch",
+         "chain (host numpy)"),
+        ("seqlib_tpu_torch.align.aligner", None, "extend_chains",
+         "extend: K1 (adaptive) + windows"),
+        ("seqlib_tpu_torch.align.device_pipeline", None,
+         "global_and_traceback", "global DP + traceback (plain torch)"),
+        ("seqlib_tpu_torch.align.aligner", "BWAAligner", "_assemble_records",
+         "host: records"),
+    )
+    # the paired path's stages (align_pairs)
+    PAIR_TARGETS = (
+        ("seqlib_tpu_torch.align.aligner", "BWAAligner", "align_batch",
+         "align_batch (both ends)"),
+        ("seqlib_tpu_torch.align.pairing", None, "infer_isize_stats",
+         "insert-size statistics (host)"),
+        ("seqlib_tpu_torch.align.pairing", None, "rescue_candidates",
+         "rescue: local SW (plain torch)"),
+        ("seqlib_tpu_torch.align.pairing", None, "_rescued_records",
+         "rescue: dedup, global DP, records"),
+    )
+
+    def __init__(self, targets=TARGETS):
+        self.targets = targets
         self.ms: dict[str, float] = {}
         self.calls: dict[str, int] = {}
         self._saved = []
 
     def __enter__(self):
         import importlib
-        for mod, cls, attr, label in self.TARGETS:
+        for mod, cls, attr, label in self.targets:
             owner = importlib.import_module(mod)
             if cls:
                 owner = getattr(owner, cls)
@@ -571,6 +634,358 @@ def check_overflow_path(dev, card: str) -> None:
     log("overflow path: align_batch_bam(sam=True) == the records' to_sam "
         f"lines ({len(payload)} bytes; fallback counted "
         f"{aln.stats['fused_overflow_fallback'] - 1} more times)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# long reads, pairs, and K1/K2 at long shapes
+# ---------------------------------------------------------------------------
+
+def _pad_cat(tensors, width: int, fill: int):
+    """Row-concatenate 2-D code tensors, each padded to ``width`` columns."""
+    out = []
+    for x in tensors:
+        pad = torch.full((x.shape[0], width - x.shape[1]), fill,
+                         dtype=x.dtype, device=x.device)
+        out.append(torch.cat([x, pad], dim=1))
+    return torch.cat(out)
+
+
+def plain_k1_grouped(calls):
+    """The plain version of each K1 call, computed once for all calls of
+    one (band, zdrop, penalties) over their lanes concatenated, each
+    call's codes padded to the group's widest Lq and Lt.  Lanes are
+    independent and padding past a lane's qlen and tlen is never read,
+    which holds where qlen <= Lq and tlen <= Lt (checked: the long path's
+    lanes are so by construction).  ``calls``: [(args, kw)]; returns each
+    call's plain outputs (with "rows")."""
+    groups: dict = {}
+    for n, (args, kw) in enumerate(calls):
+        q, ql, t, tl, _ = args
+        if bool((ql > q.shape[1]).any()) or bool((tl > t.shape[1]).any()):
+            raise AssertionError("plain_k1_grouped: qlen > Lq or tlen > Lt")
+        groups.setdefault(tuple(sorted(kw.items())), []).append(n)
+    out = [None] * len(calls)
+    for key, idx in groups.items():
+        args = [calls[n][0] for n in idx]
+        lq = max(a[0].shape[1] for a in args)
+        lt = max(a[2].shape[1] for a in args)
+        cat = (_pad_cat([a[0] for a in args], lq, 4),
+               torch.cat([a[1] for a in args]),
+               _pad_cat([a[2] for a in args], lt, 4),
+               torch.cat([a[3] for a in args]),
+               torch.cat([a[4] for a in args]))
+        want = extend_batch(*cat, return_rows=True, **dict(key))
+        m0 = 0
+        for n, a in zip(idx, args):
+            m = a[0].shape[0]
+            out[n] = {k: v[m0:m0 + m] for k, v in want.items()}
+            m0 += m
+    return out
+
+
+def plain_k2_grouped(fm, calls):
+    """The plain SMEM machine of each K2 call with ``count_work``,
+    computed once for all calls of one (seeds, stack, pass 3, one round
+    or all) over their reads concatenated, each padded with N to the
+    group's longest L, under the group's largest max_rounds and
+    step_cap.  The machine reads no code at or past a read's length, and
+    a read ends within its length's rounds; a lane whose steps pass its
+    own call's cap (the only place the group's cap could differ) sends
+    that call to a run of its own.  ``calls``: [kw]; returns each call's
+    plain outputs."""
+    lane_keys = ("reads", "lens", "x0", "min_intv", "active")
+    groups: dict = {}
+    for n, kw in enumerate(calls):
+        key = (kw["max_seeds"], kw["min_seed_len"], kw["C"],
+               kw.get("p3_seeds", 0), kw.get("p3_max_intv", 20),
+               kw["max_rounds"] == 1)
+        groups.setdefault(key, []).append(n)
+    out = [None] * len(calls)
+    for idx in groups.values():
+        kws = [calls[n] for n in idx]
+        L = max(kw["reads"].shape[1] for kw in kws)
+        cat = dict(kws[0])
+        cat["reads"] = _pad_cat([kw["reads"] for kw in kws], L, 4)
+        for k in lane_keys[1:]:
+            cat[k] = torch.cat([kw[k] for kw in kws])
+        cat["max_rounds"] = max(kw["max_rounds"] for kw in kws)
+        cat["step_cap"] = max(kw["step_cap"] for kw in kws)
+        want = _smem_machine(fm, **cat, count_work=True)
+        b0 = 0
+        for n, kw in zip(idx, kws):
+            b = kw["reads"].shape[0]
+            part = {k: v[b0:b0 + b] for k, v in want.items()}
+            b0 += b
+            if int(part["steps"].max()) > kw["step_cap"]:
+                part = _smem_machine(fm, **kw, count_work=True)
+            out[n] = part
+    return out
+
+
+def check_time_recorded(rec: Recorder, what: str, load_ns: float,
+                        card: str) -> dict:
+    """Each recorded K1 and K2 call of a path held against its plain
+    version on the same inputs (tolerance 0; ``plain_k1_grouped``,
+    ``plain_k2_grouped``), then timed on the card (device ms per launch)
+    beside its bound; returns per-kernel lists of (ms, bound ms,
+    bound_by)."""
+    times = {"sw_extend": [], "smem_machine": []}
+    t0 = time.time()
+    k1_calls = [k1_call_kwargs(r) for r in rec.k1]
+    k1_plain = plain_k1_grouped(k1_calls)
+    k2_calls = [k2_call_kwargs(r) for r in rec.k2]
+    k2_plain = plain_k2_grouped(k2_calls[0][0], [kw for _, kw in k2_calls]) \
+        if k2_calls else []
+    t_plain = time.time() - t0
+    for r, (args, kw), want in zip(rec.k1, k1_calls, k1_plain):
+        err = max_abs_diff(r[3], want)
+        if err:
+            raise AssertionError(f"{what}: K1 differs from plain ({err})")
+        ms = device_ms(lambda: sw_cuda.extend_batch_banded_cuda(*args, **kw),
+                       3)
+        bd = k1_bound_ms(args, kw["band"], want["rows"])
+        times["sw_extend"].append((ms, *bd))
+        log(f"  K1 M={args[0].shape[0]} Lq={args[0].shape[1]} "
+            f"Lt={args[2].shape[1]} w={kw['band']}: {ms:.4f} ms device time,"
+            f" longest lane {int(want['rows'].max())} rows = "
+            f"{1e3 * ms / max(int(want['rows'].max()), 1):.3f} us a row; "
+            f"bound {bd[0]:.4f} ms ({bd[1]}) [{card}]")
+    for r, (fm, kw), work in zip(rec.k2, k2_calls, k2_plain):
+        keys = K2_KEYS_BASE + (K2_KEYS_P3 if kw.get("p3_seeds") else ())
+        err = max_abs_diff(r[3], work, keys)
+        if err:
+            raise AssertionError(f"{what}: K2 differs from plain ({err})")
+        ms = device_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw), 3)
+        bd = k2_bound_ms(fm, kw, work)
+        times["smem_machine"].append((ms, *bd))
+        steps = int(work["steps"].max())
+        dep_ms = 1e-6 * load_ns * int(work["rounds"].max())
+        log(f"  K2 B={kw['reads'].shape[0]} L={kw['reads'].shape[1]} "
+            f"S={kw['max_seeds']} cap={kw['step_cap']}: {ms:.4f} ms device "
+            f"time, longest lane {steps} steps = "
+            f"{1e3 * ms / max(steps, 1):.3f} us a step; bound {bd[0]:.4f} ms "
+            f"({bd[1]}), dependent-load bound {dep_ms:.4f} ms [{card}]")
+    log(f"{what}: K1 ({len(rec.k1)} calls) and K2 ({len(rec.k2)} calls) "
+        "bit-equal to their plain versions on the path's own inputs "
+        f"(tolerance 0; plain versions {t_plain:.1f} s, grouped)")
+    return times
+
+
+def path_fields(launches: int, times=()) -> dict:
+    """A kernel's numbers on one path: launches, and where the path's
+    calls were timed, their mean device ms and bound."""
+    out = dict(launches=launches)
+    if times:
+        out.update(ms=float(np.mean([t[0] for t in times])),
+                   bound_ms=float(np.mean([t[1] for t in times])),
+                   bound_by=max(t[1:] for t in times)[1])
+    return out
+
+
+def long_read_phase(aln, genome: str, card: str, load_ns: float):
+    """128 simulated reads of 1.5-10 kb (about one indel per kb, 0.2%
+    substitutions, 10% with a 200-400 bp random 3' tail, both strands)
+    in batches of 32 through ``align_batch`` on the card, inside the
+    Recorder and with the launch counters reset just before and read
+    just after; every recorded K1/K2 call checked; the first 8 reads of
+    <= 3 kb against the port's CPU run; placement >= 98%."""
+    reads = simulate_long_reads(genome, LONG_READS, seed=17)
+    bases = sum(len(s) for _, s in reads)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder() as rec, StageTimer(StageTimer.LONG_TARGETS) as st:
+        cuda_lib.reset_launches()
+        t0 = time.time()
+        recs = []
+        for i in range(0, len(reads), LONG_BATCH):
+            part = reads[i:i + LONG_BATCH]
+            recs += aln.align_batch([s for _, s in part],
+                                    [n for n, _ in part])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"long reads: {len(reads)} reads ({bases} bases, "
+        f"{min(len(s) for _, s in reads)}-{max(len(s) for _, s in reads)} "
+        f"bp) in batches of {LONG_BATCH} through align_batch: {wall:.2f} s "
+        f"= {len(reads) / wall:.2f} reads/s, {bases / wall:.0f} bases/s; "
+        f"peak device memory {peak:.0f} MiB; launches {launches} [{card}]")
+    log("  stages (host clock, synchronised):")
+    for k, v in st.ms.items():
+        log(f"    {k:40s} {v:9.1f} ms x{st.calls[k]}")
+    for k in cuda_lib.MAIN_PATH:
+        if launches[k] <= 0:
+            raise AssertionError(f"long reads: kernel {k} not launched")
+    hdr = aln.index.header_from_index()
+    ok, with_primary = placement_rate(
+        "\n".join(r.to_sam(hdr) for rs in recs for r in rs))
+    rate = ok / len(reads)
+    log(f"long reads: {ok}/{len(reads)} ({100 * rate:.2f}%) place their "
+        f"primary within 5 bp of the simulated start; {with_primary} have "
+        "a primary")
+    if rate < 0.98:
+        raise AssertionError(f"long reads: placement {rate:.4f} < 0.98")
+    times = check_time_recorded(rec, "long reads", load_ns, card)
+    short = [i for i, (_, s) in enumerate(reads) if len(s) <= 3000][:8]
+    t0 = time.time()
+    cpu = BWAAligner(aln.index, device="cpu")
+    want = cpu.align_batch([reads[i][1] for i in short],
+                           [reads[i][0] for i in short])
+    got = [recs[i] for i in short]
+    sam_g = [r.to_sam(hdr) for rs in got for r in rs]
+    if sam_g != [r.to_sam(hdr) for rs in want for r in rs]:
+        raise AssertionError("long reads: GPU and CPU SAM differ")
+    log(f"long reads: the first {len(short)} reads of <= 3 kb: GPU SAM == "
+        f"CPU SAM byte for byte ({len(sam_g)} records; CPU run "
+        f"{time.time() - t0:.1f} s)")
+    return launches, times
+
+
+def _mutate_period8(seq: str) -> str:
+    swap = {"A": "C", "C": "G", "G": "T", "T": "A"}
+    return "".join(swap[c] if k % 8 == 0 else c for k, c in enumerate(seq))
+
+
+def paired_phase(aln, genome: str, card: str):
+    """Two batches of 4096 pairs (2 x 150 bp, insert 400 +- 40) through
+    ``align_pairs`` on the card, counters reset just before and read
+    just after; mate 2 of 2% of the pairs mutated at period 8 (no 19 bp
+    seed), so only rescue can place it.  The first 512 pairs against a
+    CPU run given the card's insert-size statistics; >= 95% of the
+    period-8 mates rescued within 20 bp of the truth, flagged proper."""
+    from seqlib_tpu_torch.align.pairing import align_pairs
+    n = PAIR_BATCH * PAIR_BATCHES
+    r1, r2 = simulate_pairs([("sim_chr", genome)], n, read_len=READ_BP,
+                            dist=400, stdev=40, seed=23)
+    s1, s2 = [u.seq for u in r1], [u.seq for u in r2]
+    names = [u.name for u in r1]
+    rng = np.random.default_rng(29)
+    mutated = np.flatnonzero(rng.random(n) < 0.02)
+    truth = {}
+    for i in mutated:
+        # mate 2 is the fragment's start, or the reverse complement of its
+        # end: whichever it is closer to
+        beg, end = (int(x) for x in names[i].rsplit("_", 5)[1:3])
+        fwd = genome[beg - 1:beg - 1 + READ_BP]
+        rc = revcomp(genome[end - READ_BP:end])
+        rev = sum(a != b for a, b in zip(s2[i], rc)) \
+            < sum(a != b for a, b in zip(s2[i], fwd))
+        truth[int(i)] = (end - READ_BP if rev else beg - 1, rev)
+        s2[i] = _mutate_period8(s2[i])
+    torch.cuda.synchronize()
+    outs, stats = [], None
+    with StageTimer(StageTimer.PAIR_TARGETS) as st:
+        cuda_lib.reset_launches()
+        t0 = time.time()
+        for b in range(PAIR_BATCHES):
+            sl = slice(b * PAIR_BATCH, (b + 1) * PAIR_BATCH)
+            o1, o2, stats = align_pairs(aln, s1[sl], s2[sl], names[sl],
+                                        stats=stats)
+            outs.append((o1, o2, stats))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+    out1 = [r for o in outs for r in o[0]]
+    out2 = [r for o in outs for r in o[1]]
+    proper = sum(1 for a, b in zip(out1, out2)
+                 if a and b and a[0].proper_pair() and b[0].proper_pair())
+    fr = stats.dirs[1]
+    log(f"pairs: {n} pairs in {PAIR_BATCHES} batches through align_pairs: "
+        f"{wall:.2f} s = {n / wall:.0f} pairs/s; proper pairs "
+        f"{proper}/{n} ({100 * proper / n:.2f}%); FR bounds [{fr.low}, "
+        f"{fr.high}]; launches {launches}; rescue windows dropped "
+        f"{aln.stats['rescue_windows_dropped']} [{card}]")
+    log("  stages (host clock, synchronised):")
+    for k, v in st.ms.items():
+        log(f"    {k:40s} {v:9.1f} ms x{st.calls[k]}")
+    for k in cuda_lib.MAIN_PATH:
+        if launches[k] <= 0:
+            raise AssertionError(f"pairs: kernel {k} not launched")
+    ok = 0
+    for i, (pos, rev) in truth.items():
+        p = [r for r in out2[i] if not r.secondary_flag()]
+        if p and abs(p[0].pos - pos) <= 20 and p[0].reverse_flag() == rev \
+                and p[0].proper_pair() and p[0].flag & 0x80:
+            ok += 1
+    log(f"pairs: {ok}/{len(truth)} period-8 mates rescued within 20 bp of "
+        f"the truth, flagged proper ({100 * ok / max(len(truth), 1):.2f}%)")
+    if ok < 0.95 * len(truth):
+        raise AssertionError("pairs: fewer than 95% of the period-8 mates "
+                             "were rescued")
+    k = PAIR_CHECK
+    t0 = time.time()
+    cpu = BWAAligner(aln.index, device="cpu")
+    c1, c2, _ = align_pairs(cpu, s1[:k], s2[:k], names[:k], stats=outs[0][2])
+    hdr = aln.index.header_from_index()
+    g_sam = [r.to_sam(hdr) for rs in outs[0][0][:k] + outs[0][1][:k]
+             for r in rs]
+    if g_sam != [r.to_sam(hdr) for rs in c1 + c2 for r in rs]:
+        raise AssertionError("pairs: GPU and CPU SAM differ")
+    log(f"pairs: the first {k} pairs: GPU SAM == CPU SAM (given the card's "
+        f"insert-size statistics) byte for byte ({len(g_sam)} records; CPU "
+        f"run {time.time() - t0:.1f} s)")
+    return launches
+
+
+def long_edge_phase(dev, fm, genome: str, card: str) -> None:
+    """K1 and K2 at long shapes against their plain versions on the card
+    (tolerance 0, grouped as in ``check_time_recorded``), each call
+    timed: K1 across 4096 rows (the JAX package's packed tie-break), 48
+    KB and 227 KB of shared memory for four lanes' codes; K2 past 48 KB
+    (L 12,289) and past 227 KB (L 60,000, read from global memory), x0
+    spread along the reads and a step cap of 4000."""
+    k1_calls, k1_got = [], []
+    for Lq, w, zdrop in K1_LONG_EDGES:
+        args = k1_long_inputs(dev, 16, Lq, w, seed=Lq + w + zdrop)
+        kw = dict(band=w, zdrop=zdrop)
+        k1_calls.append((args, kw))
+        k1_got.append(sw_cuda.extend_batch_banded_cuda(*args, **kw))
+    t0 = time.time()
+    k1_plain = plain_k1_grouped(k1_calls)
+    log(f"K1 long edges: plain versions {time.time() - t0:.1f} s")
+    for (args, kw), got, want in zip(k1_calls, k1_got, k1_plain):
+        Lq, w, zdrop = args[0].shape[1], kw["band"], kw["zdrop"]
+        err = max_abs_diff(got, want)
+        if err:
+            raise AssertionError(f"K1 long edge Lq={Lq} w={w} zdrop={zdrop}:"
+                                 f" kernel differs from plain ({err})")
+        smem_kb = 4 * (2 * ((Lq + 15) // 16 * 16) + w + 16) / 1024
+        ms = device_ms(lambda: sw_cuda.extend_batch_banded_cuda(*args, **kw),
+                       3)
+        bd = k1_bound_ms(args, w, want["rows"])
+        log(f"K1 long edge M=16 Lq={Lq} w={w} zdrop={zdrop} (four lanes' "
+            f"codes ~{smem_kb:.0f} KB): bit-equal (tolerance 0); {ms:.4f} ms "
+            f"device time, {1e3 * ms / max(int(want['rows'].max()), 1):.3f} "
+            f"us a row; bound {bd[0]:.4f} ms ({bd[1]}) [{card}]")
+    k2_calls = []
+    for L in K2_LONG_EDGES:
+        B = 64
+        reads, lens, active = edge_read_batch(genome, B, L, seed=L)
+        kw = dict(reads=reads, lens=lens,
+                  x0=np.linspace(0, L - 1, B).astype(np.int32),
+                  min_intv=np.ones(B, np.int32), active=active)
+        kw = {k: torch.from_numpy(np.asarray(v)).to(dev)
+              for k, v in kw.items()}
+        kw.update(max_seeds=256, min_seed_len=19, C=8, max_rounds=L,
+                  step_cap=4000, p3_seeds=8, p3_max_intv=20)
+        k2_calls.append(kw)
+    k2_got = [fm_cuda.smem_machine_cuda(fm, **kw) for kw in k2_calls]
+    t0 = time.time()
+    k2_plain = plain_k2_grouped(fm, k2_calls)
+    log(f"K2 long edges: plain versions {time.time() - t0:.1f} s")
+    for kw, got, want in zip(k2_calls, k2_got, k2_plain):
+        B, L = kw["reads"].shape
+        err = max_abs_diff(got, want, K2_KEYS_BASE + K2_KEYS_P3)
+        if err:
+            raise AssertionError(f"K2 long edge L={L}: kernel differs from "
+                                 f"plain ({err})")
+        ms = device_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw), 3)
+        steps = int(want["steps"].max())
+        log(f"K2 long edge B={B} L={L} (four reads ~{4 * L / 1024:.0f} KB), "
+            f"cap 4000: bit-equal (tolerance 0; {int(want['n_dropped'].sum())}"
+            f" lanes at the cap); {ms:.4f} ms device time, "
+            f"{1e3 * ms / max(steps, 1):.3f} us a step [{card}]")
 
 
 def main() -> int:
@@ -814,7 +1229,23 @@ def main() -> int:
         v["launches"] = int(launches[k])
 
     # ---- overflow path and object API ----------------------------------------
-    check_overflow_path(dev, card)
+    over_launches = check_overflow_path(dev, card)
+
+    # ---- long reads, pairs, K1/K2 at long shapes -----------------------------
+    t_new = time.time()
+    long_launches, long_times = long_read_phase(aln, genome, card, load_ns)
+    pair_launches = paired_phase(aln, genome, card)
+    t0 = time.time()
+    long_edge_phase(dev, rec.k2[0][0], genome, card)
+    log(f"long edge phase: {time.time() - t0:.1f} s")
+    for k in cuda_lib.MAIN_PATH:
+        kernels[k]["by_path"] = dict(
+            main=path_fields(kernels[k]["launches"]),
+            overflow=path_fields(over_launches[k]),
+            long=path_fields(long_launches[k], long_times[k]),
+            paired=path_fields(pair_launches[k]))
+    log(f"long-read, paired and long edge phases: {time.time() - t_new:.1f} s"
+        f" [{card}]")
 
     # ---- K3, K4, K5 on the extension bench path --------------------------------
     t0 = time.time()
@@ -830,7 +1261,8 @@ def main() -> int:
                max_abs_err=v["max_abs_err"], ms=v["ms"],
                event_ms=v["event_ms"], plain_ms=v["plain_ms"],
                bound_ms=v["bound_ms"], bound_by=v["bound_by"],
-               library_ms=v["library_ms"])
+               library_ms=v["library_ms"],
+               **({"by_path": v["by_path"]} if "by_path" in v else {}))
           for v in kernels.values()]
     log("kernels: " + ", ".join(
         f"{v['name']} launches={v['launches']} equal={v['max_abs_err'] == 0}"

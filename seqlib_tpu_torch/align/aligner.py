@@ -16,7 +16,13 @@ the classic path (``_collect_regions``: seed, chain and extend with an
 uncompacted re-extension, host dedup and primary marking, then
 ``_regions_to_hits``) and is serialised through the object API, as the
 JAX package does; ``stats["fused_overflow_fallback"]`` counts it.
-Reads longer than ``LONG_READ_BP`` raise :class:`FusedOverflowError`.
+
+``align_batch`` (and so ``align_sequence``) sends a batch holding a read
+longer than ``LONG_READ_BP`` down the long-read path: seeding on K2,
+SA locate, host chaining (``align.chain``), extension on K1, then the
+classic path's dedup, global DP and records.  ``align_batch_bam`` and
+``align_stream_bam`` raise :class:`FusedOverflowError` for such reads,
+as the JAX package's native emission does not route them either.
 """
 
 from __future__ import annotations
@@ -41,8 +47,10 @@ from ..io.bam import encode_record
 from ..ops.fm import DeviceFMIndex
 from .device_full import (FLAG_EMIT, FLAG_OVER, FLAG_PERFECT, FLAG_WIDE,
                           NFIELD, _hash64, align_full)
+from .chain import chain_batch
 from .device_pipeline import (ESC_SLOTS, dp_rows, extend_chains,
-                              global_and_traceback_packed, seed_chain_extend)
+                              global_and_traceback_packed, seed_and_locate,
+                              seed_chain_extend)
 from .options import AlignerOptions
 
 MAX_SEEDS = 16          # per read from the seed scan
@@ -51,12 +59,16 @@ MAX_CHAINS = 4          # chains extended per read
 REGION_SLOTS = MAX_CHAINS + ESC_SLOTS
 MAX_REGS = 8            # alignment regions kept per read (classic path)
 LONG_READ_BP = 1024     # the fused path's packed chain keys cap reads here
+# the global DP's direction matrix is M x Lq x (Lt + 1) bytes: regions go
+# through it in groups of at most this many bytes (rows are independent)
+GLOBAL_DP_BYTES = 4 << 30
 
 
 class FusedOverflowError(RuntimeError):
-    """A batch holds reads longer than LONG_READ_BP: the fused path's
-    packed chain keys cannot order them, and the JAX package's long-read
-    path (host chaining) is not ported yet.  Nothing is returned."""
+    """A batch given to ``align_batch_bam`` or ``align_stream_bam`` holds
+    reads longer than LONG_READ_BP: the fused path's packed chain keys
+    cannot order them.  ``align_batch`` takes such reads.  Nothing is
+    returned."""
 
 
 @dataclass
@@ -160,7 +172,7 @@ class BWAAligner:
         self.stats = dict(seeds_at_cap=0, occ_clipped=0, chains_at_cap=0,
                           regs_truncated=0, regions_widened=0,
                           regions_dropped_wide=0, fused_overflow_fallback=0,
-                          escapees_deferred=0)
+                          escapees_deferred=0, rescue_windows_dropped=0)
         self._stats_lock = threading.Lock()
         self._copy_comment = False
         self._ann_offs = index.contig_offsets()
@@ -213,8 +225,8 @@ class BWAAligner:
         if int(lens.max(initial=0)) > LONG_READ_BP:
             raise FusedOverflowError(
                 f"reads longer than {LONG_READ_BP} bp exceed the fused "
-                "path's packed chain keys (the long-read path is not "
-                "ported yet)")
+                "path's packed chain keys: align them with align_batch, "
+                "which routes them through the long-read path")
         opt = self.options
         enc_lens = np.concatenate(
             [enc, lens.astype("<u4").view(np.uint8).reshape(-1, 4)], axis=1)
@@ -321,6 +333,72 @@ class BWAAligner:
         re[bs, cs] = ere[:n]
         score[bs, cs] = esc[:n]
         return qb, qe, rb, re, score
+
+    # ------------------------------------------------------------------
+    # long-read path (> LONG_READ_BP): device seeding, host chaining
+    # ------------------------------------------------------------------
+
+    def _collect_regions_long(self, enc: np.ndarray, lens: np.ndarray
+                              ) -> list[list[AlnReg]]:
+        """Regions of reads beyond the fused path's 1024 bp chain keys:
+        seeding and SA locate on the device (K2), host chaining (int64
+        numpy, no length caps), then the banded extension (K1) of every
+        kept chain; deduped and primary-marked per read."""
+        opt = self.options
+        B, L = enc.shape
+        dev = self.device
+        reads_t = torch.from_numpy(enc).to(dev)
+        lens_t = torch.from_numpy(lens.astype(np.int64)).to(dev)
+        # more seed slots: a multi-kb read emits about one SMEM per error
+        s1 = seed_and_locate(
+            self.fm, reads_t, lens_t, max_seeds=max(64, min(256, L // 32)),
+            min_seed_len=opt.min_seed_len, max_occ=opt.max_occ,
+            k_occ=MAX_OCC_LOCATE, split_len=opt.split_len,
+            split_width=opt.split_width, max_mem_intv=opt.max_mem_intv)
+        pos = s1["pos"].cpu().numpy().astype(np.int64)
+        Bv, S1, K = pos.shape
+        l_pac = self.index.l_pac
+        rid = np.repeat(np.arange(Bv, dtype=np.int32), S1 * K)
+        oqb = np.repeat(s1["qbeg"].cpu().numpy().astype(np.int64), K, axis=1)
+        oqe = np.repeat(s1["qend"].cpu().numpy().astype(np.int64), K, axis=1)
+        oqb, oqe, op = oqb.reshape(-1), oqe.reshape(-1), pos.reshape(-1)
+        val = (op >= 0) & ~((op < l_pac) & (op + oqe - oqb > l_pac))
+        ch = chain_batch(rid[val], oqb[val], oqe[val], op[val], l_pac=l_pac,
+                         band=opt.w, max_chain_gap=opt.max_chain_gap,
+                         drop_ratio=opt.drop_ratio, max_chains=MAX_CHAINS)
+        n = ch["read"].size
+        regions: list[list[AlnReg]] = [[] for _ in range(B)]
+        if not n:
+            return regions
+        # one extension lane per chain (lanes are independent)
+        res = extend_chains(
+            self.text_t, reads_t, lens_t,
+            *(torch.from_numpy(ch[k].astype(np.int64)).to(dev)
+              for k in ("read", "anchor_q", "anchor_len", "anchor_r")),
+            l_pac=l_pac, o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+            e_ins=opt.e_ins, match=opt.a, mismatch=opt.b,
+            pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3, w=opt.w,
+            zdrop=opt.zdrop)
+        eqb, eqe, erb, ere, esc = (r.cpu().numpy() for r in res)
+        frac_reps = s1["rep_cov"].cpu().numpy() / np.maximum(lens, 1)
+        for k in range(n):
+            b = int(ch["read"][k])
+            regions[b].append(AlnReg(
+                int(erb[k]), int(ere[k]), int(eqb[k]), int(eqe[k]),
+                int(esc[k]), int(ch["weight"][k]), float(frac_reps[b])))
+        return [self._dedup_and_mark(rs) for rs in regions]
+
+    def _align_batch_long(self, seqs, names, hardclip, keep_sec_frac,
+                          max_secondary):
+        enc, lens = self._encode_batch(seqs)
+        B = len(seqs)
+        regions = self._collect_regions_long(enc, lens)[:B]
+        if keep_sec_frac < 0.0 or keep_sec_frac > 1.0:
+            regions = [[r for r in rs if r.secondary < 0] for rs in regions]
+        hits = self._regions_to_hits(enc, lens, regions)
+        return [self._assemble_records(seqs[b], names[b], hits[b], hardclip,
+                                       keep_sec_frac, max_secondary)
+                for b in range(B)]
 
     def _dedup_and_mark(self, regs: list[AlnReg]) -> list[AlnReg]:
         """mem_sort_dedup + mem_mark_primary_se semantics."""
@@ -439,31 +517,32 @@ class BWAAligner:
         narrow = np.flatnonzero(~perfect & (spans <= Lt))
         wide = np.flatnonzero(~perfect & (spans > Lt))
         dev = self.device
-        for dev_rows, width, band in ((narrow, Lt, 2 * opt.w + 8),
+        for rows_all, width, band in ((narrow, Lt, 2 * opt.w + 8),
                                       (wide, Lt_wide, Lt_wide + 8)):
-            if not dev_rows.size:
-                continue
-            M = _bucket(dev_rows.size)
-            q = np.full((M, Lq), 4, np.uint8)
-            t = np.full((M, width), 4, np.uint8)
-            ql = np.zeros(M, np.int32)
-            tl = np.zeros(M, np.int32)
-            for k, m in enumerate(dev_rows):
-                b, r = flat[m]
-                ql[k] = r.qe - r.qb
-                tl[k] = r.re - r.rb
-                q[k, :ql[k]] = enc[b, r.qb:r.qe]
-                t[k, :tl[k]] = self.text[r.rb:r.re]
-            snm, packed = global_and_traceback_packed(
-                *(torch.from_numpy(a).to(dev) for a in (q, ql, t, tl)),
-                o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
-                e_ins=opt.e_ins, match=opt.a, mismatch=opt.b, band=band)
-            nms = snm.cpu().numpy()[:, 1]
-            dev_cigs = _ops_to_cigars_batch(
-                _unpack_ops(packed.cpu().numpy()), dev_rows.size)
-            for k, m in enumerate(dev_rows):
-                cigars[m] = dev_cigs[k]
-                nms_by_row[m] = int(nms[k])
+            group = max(1, GLOBAL_DP_BYTES // (Lq * (width + 1)))
+            for g in range(0, rows_all.size, group):
+                dev_rows = rows_all[g:g + group]
+                M = dev_rows.size
+                q = np.full((M, Lq), 4, np.uint8)
+                t = np.full((M, width), 4, np.uint8)
+                ql = np.zeros(M, np.int32)
+                tl = np.zeros(M, np.int32)
+                for k, m in enumerate(dev_rows):
+                    b, r = flat[m]
+                    ql[k] = r.qe - r.qb
+                    tl[k] = r.re - r.rb
+                    q[k, :ql[k]] = enc[b, r.qb:r.qe]
+                    t[k, :tl[k]] = self.text[r.rb:r.re]
+                snm, packed = global_and_traceback_packed(
+                    *(torch.from_numpy(a).to(dev) for a in (q, ql, t, tl)),
+                    o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+                    e_ins=opt.e_ins, match=opt.a, mismatch=opt.b, band=band)
+                nms = snm.cpu().numpy()[:, 1]
+                dev_cigs = _ops_to_cigars_batch(
+                    _unpack_ops(packed.cpu().numpy()), M)
+                for k, m in enumerate(dev_rows):
+                    cigars[m] = dev_cigs[k]
+                    nms_by_row[m] = int(nms[k])
 
         l_pac = self.index.l_pac
         # region-list index per read: hit['sec'] points into it (XA)
@@ -835,9 +914,13 @@ class BWAAligner:
                     hardclip: bool = False, keep_sec_frac: float = 0.9,
                     max_secondary: int = 10) -> list[list[BamRecord]]:
         """Align a batch of reads; returns per-read BamRecord lists (MAPQ
-        sort, keepSecFrac/maxSecondary filters, clip rewrite, XA)."""
+        sort, keepSecFrac/maxSecondary filters, clip rewrite, XA).  A
+        batch with a read over LONG_READ_BP takes the long-read path."""
         if not seqs:
             return []
+        if max(len(s) for s in seqs) > LONG_READ_BP:
+            return self._align_batch_long(seqs, names, hardclip,
+                                          keep_sec_frac, max_secondary)
         _Read = collections.namedtuple("_Read", "name seq")
         chunk = [_Read(n, s) for n, s in zip(names, seqs)]
         enc, lens = self._encode_batch(seqs)

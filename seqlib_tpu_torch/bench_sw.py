@@ -227,6 +227,44 @@ def k1_edge_inputs(dev, M: int, Lq: int, Lt: int, w: int, seed: int = 0):
     return _tensors(dev, q, ql, t, tl, h0)
 
 
+def k1_long_inputs(dev, M: int, Lq: int, w: int, seed: int = 0):
+    """Long near-identical lanes for kernel K1 (Lt = Lq + w + 1), so that
+    every row runs: each target is its query with 0.3% substitutions and
+    a 1-4 bp insertion or deletion about every 1.5 kb (alternating, so
+    the path stays inside a band of w >= 8); lane 1 has a 300-base block
+    of mismatches at mid-read (a z-drop stops it there), every 8th lane
+    a qlen a few hundred rows short, and h0 is 19-60."""
+    rng = np.random.default_rng(seed)
+    Lt = Lq + w + 1
+    q = rng.integers(0, 4, (M, Lq)).astype(np.int8)
+    t = np.full((M, Lt), 4, np.int8)
+    ql = np.full(M, Lq, np.int32)
+    ql[::8] -= rng.integers(1, 400, ql[::8].size).astype(np.int32)
+    tl = np.zeros(M, np.int32)
+    h0 = rng.integers(19, 61, M).astype(np.int32)
+    for m in range(M):
+        parts, cur, k = [], 0, 0
+        for cut in range(1500, Lq - 100, 1500):
+            parts.append(q[m, cur:cut])
+            d = int(rng.integers(1, 5))
+            if k % 2:                                   # deletion
+                cur = cut + d
+            else:                                       # insertion
+                parts.append(rng.integers(0, 4, d).astype(np.int8))
+                cur = cut
+            k += 1
+        parts.append(q[m, cur:])
+        row = np.concatenate(parts)[:Lt]
+        hit = np.flatnonzero(rng.random(row.size) < 0.003)
+        row[hit] = (row[hit] + rng.integers(1, 4, hit.size)) % 4
+        if m == 1:
+            mid = row.size // 2
+            row[mid:mid + 300] = (row[mid:mid + 300] + 1) % 4
+        t[m, :row.size] = row
+        tl[m] = row.size
+    return _tensors(dev, q, ql, t, tl, h0)
+
+
 def rect_cells(args, rows: torch.Tensor) -> int:
     """DP cells these lanes need: the rows each lane computed (from the
     plain version) times its tlen + 1 columns."""

@@ -1,6 +1,7 @@
 """BamRecord: one SAM/BAM alignment record (counterpart of
 seqlib_tpu/core/record.py: the fields, flags, tags and SAM text that the
-aligner's object API emits; region queries are not ported yet).
+aligner's object API and pairing emit; region queries are not ported
+yet).
 
 Positions are 0-based; ``seq`` is an upper-case ASCII string; ``qual``
 is a numpy uint8 array of raw phred values or ``None`` for "no
@@ -16,9 +17,15 @@ from .header import BamHeader
 
 # BAM flag bits (SAM spec)
 FPAIRED = 0x1
+FPROPER_PAIR = 0x2
 FUNMAP = 0x4
+FMUNMAP = 0x8
 FREVERSE = 0x10
+FMREVERSE = 0x20
+FREAD1 = 0x40
+FREAD2 = 0x80
 FSECONDARY = 0x100
+FSUPPLEMENTARY = 0x800
 
 
 class BamRecord:
@@ -46,6 +53,22 @@ class BamRecord:
 
     def secondary_flag(self) -> bool:
         return (self.flag & FSECONDARY) != 0
+
+    def proper_pair(self) -> bool:
+        return (self.flag & FPROPER_PAIR) != 0
+
+    def mapped_flag(self) -> bool:
+        return (self.flag & FUNMAP) == 0
+
+    def supplementary_flag(self) -> bool:
+        return (self.flag & FSUPPLEMENTARY) != 0
+
+    def position_end(self) -> int:
+        """End of the alignment on the reference (bam_endpos)."""
+        if len(self.seq) > 0:
+            rlen = self.cigar.num_reference_consumed()
+            return self.pos + rlen if rlen > 0 else self.pos + 1
+        return self.pos + self.cigar.num_query_consumed()
 
     def qualities(self, offset: int = 33) -> str:
         """Phred string with offset ("" without qualities)."""

@@ -38,9 +38,13 @@
 // selected code needs are broadcast.  The circular interval stack lives
 // in registers, slot c in thread c (push: a write by thread sn % C; pop:
 // a shuffle from thread bj % C), and the read's codes are staged in
-// shared memory, so no state goes through local memory.  Seeds and
-// pass-3 hits are written by thread 0, at the same rows and in the same
-// order as the plain version.  A read stops after step_cap steps; one
+// shared memory, so no state goes through local memory.  Reads too long
+// for four of them to fit the card's per-block shared memory (227 KB on
+// an H100: reads over ~58 kb) are read from global memory through the
+// read-only cache instead, by an instance the launcher picks by shape; a
+// step reads one or two codes, so this adds one cached load to a step.
+// Seeds and pass-3 hits are written by thread 0, at the same rows and in
+// the same order as the plain version.  A read stops after step_cap steps; one
 // still busy then counts in n_dropped, as in the plain version.
 
 #include <cuda_runtime.h>
@@ -75,6 +79,7 @@ __device__ __forceinline__ uint32_t word_counts(uint32_t word, int tt) {
   return packed;
 }
 
+template <bool STAGED>
 __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
     const uint32_t* __restrict__ blocks, const uint8_t* __restrict__ reads,
     const int32_t* __restrict__ lens_v, const int32_t* __restrict__ x0_v,
@@ -93,10 +98,12 @@ __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
   if (b >= B) return;  // the whole warp leaves together
   const int L = p.L, C = p.C, S = p.S, P3 = p.P3;
 
-  // the read's codes, staged once per warp; zeroed output rows
+  // the read's codes, staged once per warp (STAGED); zeroed output rows
   uint8_t* rd = smem + warp * p.l_pad;
   const uint8_t* src = reads + (size_t)b * L;
-  for (int x = t; x < L; x += 32) rd[x] = src[x];
+  if constexpr (STAGED) {
+    for (int x = t; x < L; x += 32) rd[x] = src[x];
+  }
   int32_t* qb_o = o_qb + (size_t)b * S;
   int32_t* qe_o = o_qe + (size_t)b * S;
   int32_t* il_o = o_il + (size_t)b * S;
@@ -116,7 +123,10 @@ __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
     }
   }
   __syncwarp();  // the zeroes land before thread 0's seeds
-  auto fetch = [&](int pos) -> int { return rd[min(max(pos, 0), L - 1)]; };
+  auto fetch = [&](int pos) -> int {
+    const int x = min(max(pos, 0), L - 1);
+    if constexpr (STAGED) return rd[x]; else return __ldg(src + x);
+  };
 
   const int len = lens_v[b];
   const int min_intv = min_intv_v[b];
@@ -380,16 +390,26 @@ extern "C" int smem_machine(const void* blocks, const void* reads,
   p.step_cap = step_cap; p.P3 = P3; p.p3_max_intv = p3_max_intv;
   for (int c = 0; c < 5; ++c) p.L2[c] = L2[c];
   p.l_pad = (L + 15) & ~15;
-  const size_t smem = (size_t)WARPS * p.l_pad;
+  // stage the reads when four of them fit the card's per-block shared
+  // memory, else read them from global memory
+  size_t smem = (size_t)WARPS * p.l_pad;
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&limit,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool staged = smem <= (size_t)limit;
+  auto kernel = staged ? smem_warp_kernel<true> : smem_warp_kernel<false>;
+  if (!staged) smem = 0;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        smem_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int grid = (B + WARPS - 1) / WARPS;
-  smem_warp_kernel<<<grid, WARPS * 32, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(blocks),
       static_cast<const uint8_t*>(reads),
       static_cast<const int32_t*>(lens), static_cast<const int32_t*>(x0),

@@ -33,7 +33,14 @@
 // band).  Only the live columns [max(0, R - w), min(R + w, tlen)] are
 // computed; every other slot is NEG, and only live slots and the sentinel
 // are ever read.  The lane's query and target codes are staged in shared
-// memory once, so a row's query code is a broadcast.  Control flow is
+// memory once, so a row's query code is a broadcast.  Long lanes (the
+// long-read path gives a lane up to L - 1 query rows and L + w + 1 target
+// columns) may not fit: when four lanes' codes exceed the card's
+// per-block shared memory (227 KB on an H100, four 28 kb lanes), the
+// kernel is instantiated to read them from global memory through the
+// read-only cache instead (a row reads one query code and the 2w + 1
+// target codes of its band, contiguous across the warp, so the loads
+// stay coalesced); the launcher picks the layout by shape.  Control flow is
 // the same in all 32 threads (rows, z-drop exit), so there is no
 // divergence inside a lane.
 //
@@ -67,7 +74,7 @@ struct Params {
   int lq_pad, lt_pad;  // a warp's shared-memory bytes for query, target
 };
 
-template <int S>
+template <int S, bool STAGED>
 __global__ void __launch_bounds__(WARPS * 32) band_warp_kernel(Params p) {
   extern __shared__ __align__(16) int8_t smem[];
   const int warp = threadIdx.x >> 5;
@@ -81,14 +88,23 @@ __global__ void __launch_bounds__(WARPS * 32) band_warp_kernel(Params p) {
   const int rows = min(ql, p.Lq);
   const int oe_ins = p.o_ins + p.e_ins;
 
-  // the lane's codes, staged once per warp
-  int8_t* sq = smem + warp * (p.lq_pad + p.lt_pad);
-  int8_t* st = sq + p.lq_pad;
+  // the lane's codes: staged once per warp (STAGED), or read from global
+  // memory through the read-only cache
   const int8_t* q = p.query + (size_t)lane * p.Lq;
   const int8_t* tg = p.target + (size_t)lane * p.Lt;
-  for (int x = t; x < rows; x += 32) sq[x] = q[x];
-  for (int x = t; x < tl; x += 32) st[x] = tg[x];
-  __syncwarp();
+  int8_t* sq = smem + warp * (p.lq_pad + p.lt_pad);
+  int8_t* st = sq + p.lq_pad;
+  if constexpr (STAGED) {
+    for (int x = t; x < rows; x += 32) sq[x] = q[x];
+    for (int x = t; x < tl; x += 32) st[x] = tg[x];
+    __syncwarp();
+  }
+  auto qcode = [&](int i) -> int {
+    if constexpr (STAGED) return sq[i]; else return __ldg(q + i);
+  };
+  auto tcode = [&](int j) -> int {
+    if constexpr (STAGED) return st[j]; else return __ldg(tg + j);
+  };
 
   // row 0 (R = 0): cell j at slot j + w for 0 <= j <= min(w, tl)
   const int r0 = t * S;
@@ -113,7 +129,7 @@ __global__ void __launch_bounds__(WARPS * 32) band_warp_kernel(Params p) {
     const int base = R - w;           // column of slot 0
     const int lo = max(0, base);
     const int hi = min(R + w, tl);
-    const int qi = sq[i];
+    const int qi = qcode(i);
     // vertical predecessor of the strip's last slot (previous row)
     int hv = __shfl_down_sync(FULL, H[0], 1);
     int fv = __shfl_down_sync(FULL, F[0], 1);
@@ -132,7 +148,7 @@ __global__ void __launch_bounds__(WARPS * 32) band_warp_kernel(Params p) {
       const int f = max(hup - oe_ins, fup - p.e_ins);
       int hnd;
       if (j >= 1) {
-        const int tc = live ? st[j - 1] : 4;
+        const int tc = live ? tcode(j - 1) : 4;
         const int sc = (tc == qi && tc < 4 && qi < 4) ? p.match
                                                       : -p.mismatch;
         hnd = max(H[k] + sc, f);      // diagonal: the same slot
@@ -198,18 +214,32 @@ __global__ void __launch_bounds__(WARPS * 32) band_warp_kernel(Params p) {
   warp_finish(p.out, p.M, lane, best, bi, bj, gscore, gtle);
 }
 
-template <int S>
-int launch(const Params& p, cudaStream_t st) {
-  const size_t smem = (size_t)WARPS * (p.lq_pad + p.lt_pad);
+template <int S, bool STAGED>
+int launch_layout(const Params& p, size_t smem, cudaStream_t st) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        band_warp_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        band_warp_kernel<S, STAGED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int blocks = (p.M + WARPS - 1) / WARPS;
-  band_warp_kernel<S><<<blocks, WARPS * 32, smem, st>>>(p);
+  band_warp_kernel<S, STAGED><<<blocks, WARPS * 32, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// stage the codes when four lanes' worth fits the card's per-block
+// shared memory, else read them from global memory
+template <int S>
+int launch(const Params& p, cudaStream_t st) {
+  const size_t smem = (size_t)WARPS * (p.lq_pad + p.lt_pad);
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&limit,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (smem <= (size_t)limit) return launch_layout<S, true>(p, smem, st);
+  return launch_layout<S, false>(p, 0, st);
 }
 
 }  // namespace

@@ -84,8 +84,10 @@ def _inblock_count(words: torch.Tensor, c, within: torch.Tensor
                    ) -> torch.Tensor:
     """Occurrences of 2-bit code c among the first ``within`` bases of a
     block given its 8 packed words (int64 [..., 8]); c int or tensor."""
-    c = torch.as_tensor(c, dtype=torch.int64, device=words.device)
-    pat = (c * M55)[..., None]
+    # a Python int stays a scalar: a device tensor made from it is a
+    # host-to-device copy that waits for the stream at every call
+    pat = (c.to(torch.int64) * M55)[..., None] if torch.is_tensor(c) \
+        else int(c) * M55
     nx = ~(words ^ pat) & M32
     m = nx & (nx >> 1) & M55
     j16 = torch.arange(8, dtype=torch.int64, device=words.device) * 16

@@ -12,6 +12,9 @@ the plain version of kernels K3-K5 (``csrc/sw_rect.cu``).
 
 ``global_batch`` returns the packed direction matrix that
 ``align.device_pipeline.global_and_traceback`` walks on the device.
+``local_batch`` is the local Smith-Waterman of mate rescue; the JAX
+package computes it in XLA, with no TPU kernel, so it is plain torch on
+every device.
 """
 
 from __future__ import annotations
@@ -24,13 +27,22 @@ NEG16 = -16384     # the TPU rectangle kernels' -inf surrogate
 # columns in 32 register slots of a warp (csrc/sw_rect.cu's MAX_SLOTS)
 RECT_MAX_LT = 1023
 
-_PACK_BIAS = 1 << 16
-_PACK_SHIFT = 12  # low bits carry (4095 - row index) for tie-breaks
+# extend_batch's running maxima are int64 (score, index) packs: the high
+# 32 bits hold the score (+1 or +2, so never negative), the low 32 bits
+# 2^32 - 1 - index, so one max prefers the higher score, then the smaller
+# row or column at any length
+_LOW32 = (1 << 32) - 1
 
 # direction bits for global traceback
 DIR_M, DIR_E, DIR_F = 0, 1, 2       # H source: diag / left(D) / up(I)
 BIT_EEXT, BIT_FEXT = 4, 8
 BIT_MIS = 16                        # q[i-1] != t[j-1] (for NM counting)
+
+
+def _rows_to_run(qlen: torch.Tensor, Lq: int) -> int:
+    """Query rows a row loop must run: a row at or past every lane's
+    qlen leaves every output as it is."""
+    return min(Lq, int(qlen.max())) if qlen.numel() else 0
 
 
 def _row_scan_E(hnd: torch.Tensor, o_del: int, e_del: int) -> torch.Tensor:
@@ -76,15 +88,16 @@ def extend_batch(query, qlen, target, tlen, h0,
 
     h_prev = h_row0
     f_prev = torch.full((B, Lt + 1), NEG, dtype=i32, device=dev)
-    best_pack = f_prev.clone()
+    best_pack = torch.full((B, Lt + 1), -1, dtype=torch.int64, device=dev)
     g_row = f_prev.clone()
+    jt64 = jt.to(torch.int64)
     zbest = h0.clone()
     zbi = torch.zeros(B, dtype=i32, device=dev)
     zbj = torch.zeros(B, dtype=i32, device=dev)
     stopped = torch.zeros(B, dtype=torch.bool, device=dev)
     rows = torch.zeros(B, dtype=i32, device=dev)
 
-    for i in range(Lq):
+    for i in range(_rows_to_run(qlen, Lq)):
         qi = query[:, i].to(i32)[:, None]
         is_match = (trow == qi) & (trow < 4) & (qi < 4)
         sub = torch.where(is_match, match, -mismatch).to(i32)
@@ -106,14 +119,14 @@ def extend_batch(query, qlen, target, tlen, h0,
         h = torch.where(active, h, h_prev)
         f = torch.where(active, F, f_prev)
         hp = torch.where(active & (jt > 0), torch.clamp(h, min=-1), -1)
-        best_pack = torch.maximum(
-            best_pack, (hp + _PACK_BIAS) * (1 << _PACK_SHIFT) + (4095 - i))
+        hp64 = hp.to(torch.int64)
+        best_pack = torch.maximum(best_pack,
+                                  ((hp64 + 1) << 32) + (_LOW32 - i))
         g_row = torch.where(active & (i == qlen - 1), h, g_row)
         if zdrop > 0:
-            rp = torch.amax((torch.clamp(hp, min=-1) + 2) * 2048
-                            + (2047 - jt), dim=-1)
-            m = torch.div(rp, 2048, rounding_mode="floor") - 2
-            mj = 2047 - torch.remainder(rp, 2048)
+            rp = torch.amax(((hp64 + 2) << 32) + (_LOW32 - jt64), dim=-1)
+            m = (rp >> 32).to(i32) - 2
+            mj = (_LOW32 - (rp & _LOW32)).to(i32)
             act1 = active[:, 0]
             better = m > zbest
             di = i - zbi
@@ -130,9 +143,8 @@ def extend_batch(query, qlen, target, tlen, h0,
 
     col_best = best_pack.amax(dim=-1)
     btle = torch.argmax(best_pack, dim=-1).to(i32)
-    score = torch.div(col_best, 1 << _PACK_SHIFT, rounding_mode="floor") \
-        - _PACK_BIAS
-    bqle = 4095 - torch.remainder(col_best, 1 << _PACK_SHIFT) + 1
+    score = ((col_best >> 32) - 1).to(i32)
+    bqle = (_LOW32 - (col_best & _LOW32) + 1).to(i32)
     found = score > 0
     zero = torch.zeros_like(score)
     out = dict(score=torch.where(found, score, zero).to(i32),
@@ -176,6 +188,86 @@ def check_rect_shape(who: str, Lq: int, Lt: int) -> None:
         raise ValueError(f"{who}: needs Lq <= 4095 and Lt <= {RECT_MAX_LT}")
 
 
+# local_batch packs (score, row, column) into 9 + 11 + 11 bits of an int32,
+# as the JAX package does: shapes under 2048 and scores clamped at 511
+LOCAL_MAX_LEN = 2047
+LOCAL_MAX_SCORE = 511
+
+
+def _local_pass(query, qlen, target, tlen, o_del, e_del, o_ins, e_ins,
+                match, mismatch):
+    """One local Smith-Waterman pass: (score, end row + 1, end column)
+    of each lane's best cell (highest score, then the smallest row, then
+    the smallest column), zeros where no cell scores above 0."""
+    dev = query.device
+    i32 = torch.int32
+    B, Lq = query.shape
+    Lt = target.shape[1]
+    jt = torch.arange(Lt + 1, dtype=i32, device=dev)[None, :]
+    trow = target.to(i32)
+    tmask = (jt <= tlen.to(i32)[:, None]) & (jt > 0)
+    qlen = qlen.to(i32)
+    h_prev = torch.zeros((B, Lt + 1), dtype=i32, device=dev)
+    f_prev = torch.full((B, Lt + 1), NEG, dtype=i32, device=dev)
+    neg_col = f_prev[:, :1]
+    best = torch.zeros(B, dtype=i32, device=dev)
+    for i in range(_rows_to_run(qlen, Lq)):
+        qi = query[:, i].to(i32)[:, None]
+        is_match = (trow == qi) & (trow < 4) & (qi < 4)
+        sub = torch.where(is_match, match, -mismatch).to(i32)
+        M = h_prev[:, :-1] + sub
+        F = torch.maximum(h_prev - (o_ins + e_ins), f_prev - e_ins)
+        hnd = torch.cat([neg_col, torch.maximum(M, F[:, 1:])], dim=1)
+        E = _row_scan_E(hnd, o_del, e_del)
+        h = torch.clamp(torch.maximum(hnd, E), min=0)
+        h = torch.where(tmask, h, 0)
+        active = (i < qlen)[:, None]
+        h = torch.where(active, h, h_prev)
+        f = torch.where(active, F, f_prev)
+        hp = torch.clamp(torch.where(active & tmask, h, 0),
+                         max=LOCAL_MAX_SCORE)
+        pack = (hp << 22) | ((2047 - i) << 11) | (2047 - jt)
+        best = torch.maximum(best, pack.amax(dim=1))
+        h_prev, f_prev = h, f
+    score = best >> 22
+    ei = 2047 - ((best >> 11) & 0x7FF)
+    ej = 2047 - (best & 0x7FF)
+    found = score > 0
+    zero = torch.zeros_like(score)
+    return (torch.where(found, score, zero), torch.where(found, ei + 1, zero),
+            torch.where(found, ej, zero))
+
+
+def local_batch(query, qlen, target, tlen,
+                o_del: int = 6, e_del: int = 1,
+                o_ins: int = 6, e_ins: int = 1,
+                match: int = 1, mismatch: int = 4):
+    """Batched local Smith-Waterman (the role of bwa's ksw_align in mate
+    rescue): score and the best local alignment's [qb, qe) x [tb, te).
+
+    A forward pass finds the best end cell; the same DP over the
+    reversed prefixes finds the start.  The JAX package's caps hold:
+    Lq, Lt <= LOCAL_MAX_LEN (raises otherwise), and a score is clamped
+    at LOCAL_MAX_SCORE.  Returns an int32 dict: score, qb, qe, tb, te."""
+    B, Lq = query.shape
+    Lt = target.shape[1]
+    if Lq > LOCAL_MAX_LEN or Lt > LOCAL_MAX_LEN:
+        raise ValueError(f"local_batch: needs Lq, Lt <= {LOCAL_MAX_LEN}, "
+                         f"got {Lq}, {Lt}")
+    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+              match=match, mismatch=mismatch)
+    score, qe, te = _local_pass(query, qlen, target, tlen, **kw)
+    dev = query.device
+    kq = torch.arange(Lq, device=dev)[None, :]
+    qr = query.gather(1, (qe[:, None] - 1 - kq).clamp(0, Lq - 1))
+    qr = torch.where(kq < qe[:, None], qr, torch.full_like(qr, 4))
+    kt = torch.arange(Lt, device=dev)[None, :]
+    tr = target.gather(1, (te[:, None] - 1 - kt).clamp(0, Lt - 1))
+    tr = torch.where(kt < te[:, None], tr, torch.full_like(tr, 4))
+    _, qspan, tspan = _local_pass(qr, qe, tr, te, **kw)
+    return dict(score=score, qb=qe - qspan, qe=qe, tb=te - tspan, te=te)
+
+
 def global_batch(query, qlen, target, tlen,
                  o_del: int = 6, e_del: int = 1,
                  o_ins: int = 6, e_ins: int = 1,
@@ -202,7 +294,7 @@ def global_batch(query, qlen, target, tlen,
     neg_col = torch.full((B, 1), NEG, dtype=i32, device=dev)
     zero_col = torch.zeros((B, 1), dtype=torch.uint8, device=dev)
 
-    for i in range(Lq):
+    for i in range(_rows_to_run(qlen, Lq)):
         qi = query[:, i].to(i32)[:, None]
         is_match = (trow == qi) & (trow < 4) & (qi < 4)
         sub = torch.where(is_match, match, -mismatch).to(i32)

@@ -1,4 +1,4 @@
-"""Seeded synthetic reference and short-read simulator (numpy only).
+"""Seeded synthetic reference and read simulators (numpy only).
 
 ``make_genome`` builds one random contig with planted exact repeat
 pairs, 1%-divergent copies and a tandem block (the repeat classes of
@@ -9,6 +9,12 @@ deletion, and a share with a random soft-clip flank.  Each read name
 carries its truth: ``<prefix><i>_<pos>_<strand>`` with ``pos`` the
 0-based leftmost reference base of the read's aligned part.
 
+``simulate_long_reads`` draws long reads (1.5-10 kb by default) named
+the same way, with substitutions, about one short indel per kb and a
+share with a random 3' tail.  ``simulate_pairs`` is the port's copy of
+``seqlib_tpu.sim.simulate_pairs`` (wgsim-like pairs, truth in the
+names): the same seed gives the same pairs.
+
 ``make_repeat_genome`` / ``make_repeat_reads`` are the port's copy of
 the hermetic repeat corpus of ``tests/regen_golden.py`` (131 kb contig
 'rep1', 1000 reads in 10 classes), whose golden SAM
@@ -18,6 +24,9 @@ the hermetic repeat corpus of ``tests/regen_golden.py`` (131 kb contig
 from __future__ import annotations
 
 import numpy as np
+
+from .core.seq import revcomp
+from .core.unaligned import UnalignedSequence
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -95,6 +104,98 @@ def simulate_reads(genome: str, n: int, seed: int = 11, length: int = 150,
         name = f"{prefix}{i}_{p + lead}_{'-' if rev[i] else '+'}"
         reads.append((name, frag.tobytes().decode()))
     return reads
+
+
+def simulate_long_reads(genome: str, n: int, seed: int = 13,
+                        min_len: int = 1500, max_len: int = 10_000,
+                        sub_rate: float = 0.002, tail_frac: float = 0.1,
+                        tail_len: tuple[int, int] = (200, 400),
+                        prefix: str = "long"):
+    """n long reads as (name, seq) pairs: lengths uniform in [min_len,
+    max_len] (the genomic part), uniform positions on both strands, one
+    1-4 bp insertion or deletion in every full kb, substitutions at
+    ``sub_rate``, and for a ``tail_frac`` share a random 3' tail of
+    ``tail_len`` bases (appended after the strand flip, so a reverse
+    read's tail is clipped on the left of its record).  The name's
+    position is the 0-based leftmost reference base of the genomic
+    part."""
+    rng = np.random.default_rng(seed)
+    g = np.frombuffer(genome.encode(), np.uint8)
+    lengths = rng.integers(min_len, max_len + 1, n)
+    rev = rng.random(n) < 0.5
+    tails = rng.random(n) < tail_frac
+    reads = []
+    for i in range(n):
+        length = int(lengths[i])
+        p = int(rng.integers(0, g.size - length - 8 * (length // 1000) - 8))
+        parts, cur = [], p
+        for k in range(length // 1000):
+            cut = p + 1000 * k + int(rng.integers(100, 900))
+            parts.append(g[cur:cut])
+            d = int(rng.integers(1, 5))
+            if rng.random() < 0.5:                         # deletion
+                cur = cut + d
+            else:                                          # insertion
+                parts.append(BASES[rng.integers(0, 4, d)])
+                cur = cut
+        got = sum(x.size for x in parts)
+        parts.append(g[cur:cur + length - got])
+        frag = np.concatenate(parts)
+        hit = np.flatnonzero(rng.random(frag.size) < sub_rate)
+        cur_b = np.searchsorted(BASES, frag[hit])
+        frag[hit] = BASES[(cur_b + rng.integers(1, 4, hit.size)) % 4]
+        if rev[i]:
+            frag = _rc(frag)
+        if tails[i]:
+            t = int(rng.integers(tail_len[0], tail_len[1] + 1))
+            frag = np.concatenate([frag, BASES[rng.integers(0, 4, t)]])
+        name = f"{prefix}{i}_{p}_{'-' if rev[i] else '+'}"
+        reads.append((name, frag.tobytes().decode()))
+    return reads
+
+
+def simulate_pairs(seqs: list[tuple[str, str]], n_pairs: int,
+                   read_len: int = 150, dist: int = 300, stdev: int = 30,
+                   error_rate: float = 0.002, seed: int = 7):
+    """wgsim-like pairs: (reads1, reads2) lists of UnalignedSequence.
+
+    Fragments of Normal(dist, stdev) length (at least read_len + 10) at
+    uniform positions of contigs drawn by length; mate 1 is the
+    fragment's start and mate 2 the reverse complement of its end, or
+    the other way round with probability 1/2; substitutions at
+    ``error_rate``.  Names are ``<contig>_<beg1>_<end>_0:0:0_0:0:0_<k>``
+    with /1 and /2."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([len(s) for _, s in seqs], dtype=np.float64)
+    probs = lengths / lengths.sum()
+    reads1, reads2 = [], []
+    qual = "2" * read_len
+
+    def mutate(s: str) -> str:
+        arr = np.frombuffer(s.encode(), dtype=np.uint8).copy()
+        for e in np.flatnonzero(rng.random(arr.size) < error_rate):
+            arr[e] = rng.choice(BASES[BASES != arr[e]])
+        return arr.tobytes().decode()
+
+    made = 0
+    while made < n_pairs:
+        ci = int(rng.choice(len(seqs), p=probs))
+        name, seq = seqs[ci]
+        isize = max(int(rng.normal(dist, stdev)), read_len + 10)
+        if len(seq) <= isize:
+            continue
+        beg = int(rng.integers(0, len(seq) - isize))
+        frag = seq[beg:beg + isize]
+        if "N" in frag:
+            continue
+        r1, r2 = frag[:read_len], revcomp(frag[-read_len:])
+        if rng.random() < 0.5:
+            r1, r2 = revcomp(frag[-read_len:]), frag[:read_len]
+        nm = f"{name}_{beg + 1}_{beg + isize}_0:0:0_0:0:0_{made:x}"
+        reads1.append(UnalignedSequence(nm + "/1", mutate(r1), qual))
+        reads2.append(UnalignedSequence(nm + "/2", mutate(r2), qual))
+        made += 1
+    return reads1, reads2
 
 
 def edge_read_batch(genome: str, B: int, L: int, seed: int = 0):

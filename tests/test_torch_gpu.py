@@ -15,13 +15,16 @@ import pytest
 import torch
 
 from seqlib_tpu_torch.align import BWAAligner
-from seqlib_tpu_torch.bench_sw import RECT_KERNELS, k1_edge_inputs
+from seqlib_tpu_torch.align.pairing import align_pairs
+from seqlib_tpu_torch.bench_sw import (RECT_KERNELS, k1_edge_inputs,
+                                       k1_long_inputs)
 from seqlib_tpu_torch.index import FMIndex
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, sw_cuda
 from seqlib_tpu_torch.ops.fm import DeviceFMIndex, _smem_machine, smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch, extend_rect
 from seqlib_tpu_torch.sim import (edge_read_batch, make_genome,
                                   make_repeat_genome, make_repeat_reads,
+                                  simulate_long_reads, simulate_pairs,
                                   simulate_reads)
 
 pytestmark = pytest.mark.gpu
@@ -116,6 +119,78 @@ def test_k2_equals_plain(cuda, genome, p3_seeds, step_cap, max_rounds, C, L):
         assert torch.equal(got[k], want[k]), k
     if step_cap == 60:
         assert int(want["n_dropped"].sum()) > 0
+
+
+@pytest.mark.parametrize("Lq,w,zdrop", [
+    # past the 4096 rows of the JAX package's packed tie-break
+    (4097, 100, 100), (4097, 32, 0),
+    # past the 227 KB of shared memory a block can have: the codes are
+    # read from global memory
+    (30_000, 100, 0), (30_000, 32, 100)])
+def test_k1_long_lanes_equal_plain(cuda, Lq, w, zdrop):
+    args = k1_long_inputs(cuda, 16, Lq, w, seed=Lq + w)
+    got = sw_cuda.extend_batch_banded(*args, band=w, zdrop=zdrop)
+    want = extend_batch(*args, band=w, zdrop=zdrop)
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("L", [12_289, 60_000])
+def test_k2_long_reads_equal_plain(cuda, genome, L):
+    """Reads past 48 KB of shared memory for four (L 12,289) and past the
+    227 KB a block can have (L 60,000, read from global memory); x0
+    spread along the read and a step cap of 4000 keep the plain version
+    short."""
+    fm = DeviceFMIndex.from_host(FMIndex.construct([("rep1", genome)]),
+                                 device=cuda)
+    B = 16
+    enc, lens, active = edge_read_batch(genome, B, L, seed=L)
+    x0 = np.linspace(0, L - 1, B).astype(np.int32)
+    args = [torch.from_numpy(np.asarray(a)).to(cuda) for a in
+            (enc, lens, x0, np.ones(B, np.int32), active)]
+    kw = dict(max_seeds=64, min_seed_len=19, C=8, max_rounds=L,
+              step_cap=4000, p3_seeds=8, p3_max_intv=20)
+    got = smem_machine(fm, *args, **kw)
+    want = _smem_machine(fm, *args, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_long_read_batch_gpu_equals_cpu(cuda, genome):
+    """Eight long reads (1.1-3 kb, some with a 3' tail) through
+    align_batch's long-read path on both devices."""
+    reads = simulate_long_reads(genome, 8, seed=3, min_len=1100,
+                                max_len=3000, tail_frac=0.3)
+    idx = FMIndex.construct([("rep1", genome)])
+    seqs, names = [s for _, s in reads], [n for n, _ in reads]
+    hdr = idx.header_from_index()
+    cuda_lib.reset_launches()
+    g = BWAAligner(idx, device=cuda).align_batch(seqs, names)
+    assert all(cuda_lib.LAUNCHES[k] > 0 for k in cuda_lib.MAIN_PATH)
+    c = BWAAligner(idx, device="cpu").align_batch(seqs, names)
+    assert [r.to_sam(hdr) for rs in g for r in rs] \
+        == [r.to_sam(hdr) for rs in c for r in rs]
+
+
+def test_pair_batch_gpu_equals_cpu(cuda, genome):
+    """64 pairs through align_pairs on both devices, mate 2 of every
+    eighth pair mutated past seeding (period 8), so rescue runs."""
+    idx = FMIndex.construct([("rep1", genome)])
+    r1, r2 = simulate_pairs([("rep1", genome)], 64, dist=400, stdev=40,
+                            seed=2)
+    s1, s2 = [u.seq for u in r1], [u.seq for u in r2]
+    swap = {"A": "C", "C": "G", "G": "T", "T": "A"}
+    for i in range(0, 64, 8):
+        s2[i] = "".join(swap[c] if k % 8 == 0 else c
+                        for k, c in enumerate(s2[i]))
+    names = [u.name for u in r1]
+    hdr = idx.header_from_index()
+    out = {}
+    for dev in (cuda, "cpu"):
+        o1, o2, st = align_pairs(BWAAligner(idx, device=dev), s1, s2, names)
+        out[str(dev)] = ([r.to_sam(hdr) for rs in o1 + o2 for r in rs],
+                         [(d.failed, d.low, d.high) for d in st.dirs])
+    assert out["cuda"] == out["cpu"]
 
 
 def test_load_chase_follows_the_chain(cuda):

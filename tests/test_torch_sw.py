@@ -5,9 +5,12 @@ wrapper's three branches.
 / ``global_and_traceback`` get the same numpy inputs as their JAX
 counterparts; all outputs are integers and must be exactly equal.  The
 strict-band scalar oracle of tests/test_sw_banded.py pins the banded
-score independently.  On CPU tensors ``extend_batch_adaptive`` runs the
-plain banded DP in each pass, so these tests drive all of its branches
-and hold it to ``extend_batch(band=...)``.
+score independently, also past 4096 query rows, where the JAX package's
+int32 packed maxima no longer hold (two tests pin what it returns there:
+past row 4095, and past column 2047 under z-drop).  On CPU tensors
+``extend_batch_adaptive`` runs the plain banded DP in each pass, so these
+tests drive all of its branches and hold it to
+``extend_batch(band=...)``.
 """
 
 import jax.numpy as jnp
@@ -96,6 +99,86 @@ def test_extend_batch_vs_scalar_oracle():
         want, _ = _scalar_banded(q[b], t[b], int(ql[b]), int(tl[b]),
                                  int(h0[b]), 6, 1, 6, 1, 1, 4, w)
         assert int(got["score"][b]) == want, b
+
+
+def _copy_lane(Lq: int, seed: int, subs=(), h0: int = 19):
+    """One lane whose target is its query with substitutions at
+    ``subs``: its best cell lies on the main diagonal, in the last rows."""
+    q = np.random.default_rng(seed).integers(0, 4, (1, Lq)).astype(np.int8)
+    t = q.copy()
+    for p in subs:
+        t[0, p] = (t[0, p] + 1) % 4
+    n = np.array([Lq], np.int32)
+    return q, n, t, n.copy(), np.array([h0], np.int32)
+
+
+@pytest.mark.parametrize("Lq,zdrop", [(4095, 0), (4096, 0), (4096, 100)])
+def test_extend_batch_equals_jax_up_to_4096_rows(Lq, zdrop):
+    """The int64 running maxima change nothing where the JAX package's
+    int32 packing (12 bits of row) holds: lanes of up to 4096 rows."""
+    q, ql, t, tl, h0 = _lanes(Lq + zdrop, 6, Lq, Lq + 101, near=0.7,
+                              empty=0.0)
+    ql[:3] = Lq                                   # rows to the last one
+    arrays = (q, ql, t, tl, h0)
+    want, got = _both(jsw.extend_batch, tsw.extend_batch, arrays,
+                      band=100, zdrop=zdrop)
+    for k in KEYS:
+        assert np.array_equal(np.asarray(want[k]), got[k].numpy()), k
+
+
+@pytest.mark.parametrize("Lq", [4097, 5000])
+def test_extend_batch_vs_scalar_oracle_past_4096_rows(Lq):
+    """Past 4096 rows the port keeps bwa's tie-break (highest score, then
+    the earliest row): the strict-band scalar oracle's best score and
+    last row (gscore, gtle) agree, and the best cell is on the last row."""
+    w = 100
+    q, ql, t, tl, h0 = _copy_lane(Lq, Lq, subs=(17, Lq // 2, Lq - 40))
+    got = tsw.extend_batch(*(torch.from_numpy(a) for a in (q, ql, t, tl, h0)),
+                           band=w)
+    best, last = _scalar_banded(q[0], t[0], Lq, Lq, 19, 6, 1, 6, 1, 1, 4, w)
+    assert int(got["score"][0]) == best
+    assert int(got["gscore"][0]) == int(last.max())
+    assert int(got["gtle"][0]) == int(np.argmax(last))
+    assert (int(got["qle"][0]), int(got["tle"][0])) == (Lq, Lq)
+
+
+# the JAX package's extend_batch on exact-copy lanes (h0 19, band 100,
+# zdrop 100): past row 4095 its packed (score, 4095 - row) borrows from
+# the score, so score drops by one and qle wraps; gscore is right
+JAX_ROW_PACK = {4100: (4118, 4), 5000: (5018, 904)}
+
+
+@pytest.mark.parametrize("Lq", sorted(JAX_ROW_PACK))
+def test_jax_extend_batch_past_4096_rows_is_another_function(Lq):
+    arrays = _copy_lane(Lq, seed=1)
+    want, got = _both(jsw.extend_batch, tsw.extend_batch, arrays,
+                      band=100, zdrop=100)
+    assert (int(want["score"][0]), int(want["qle"][0])) == JAX_ROW_PACK[Lq]
+    assert (int(got["score"][0]), int(got["qle"][0])) == (Lq + 19, Lq)
+    assert int(want["gscore"][0]) == int(got["gscore"][0]) == Lq + 19
+
+
+def test_jax_zdrop_past_column_2047_is_another_function():
+    """The JAX package packs the z-drop row max as (score, 2047 - column):
+    past column 2047 the decoded column is off by 2048, the drop test's
+    diagonal penalty becomes huge and the lane never stops.  A copy of
+    2040 bases, 200 mismatched bases and 1500 more copied bases: bwa (and
+    the port, and kernel K1) stop in the mismatches with the first
+    copy's score; the JAX package runs on into the second copy."""
+    rng = np.random.default_rng(3)
+    a1 = rng.integers(0, 4, 2040)
+    junk_q = rng.integers(0, 4, 200)
+    junk_t = (junk_q + rng.integers(1, 4, 200)) % 4       # all mismatches
+    a2 = rng.integers(0, 4, 1500)
+    q = np.concatenate([a1, junk_q, a2]).astype(np.int8)[None]
+    t = np.concatenate([a1, junk_t, a2]).astype(np.int8)[None]
+    n = np.array([q.shape[1]], np.int32)
+    arrays = (q, n, t, n.copy(), np.array([19], np.int32))
+    want, got = _both(jsw.extend_batch, tsw.extend_batch, arrays,
+                      band=100, zdrop=100)
+    assert (int(got["score"][0]), int(got["qle"][0])) == (2059, 2040)
+    assert int(want["qle"][0]) == 3740
+    assert int(want["score"][0]) > 2059
 
 
 @pytest.mark.parametrize("branch,near,zdrop", [
