@@ -64,21 +64,40 @@ last line is printed):
    (four lanes' codes past 227 KB of shared memory, read from global
    memory), K2 at L 12,289 and 60,000, each against its plain version
    on the card (tolerance 0) and timed;
-12. rectangle kernels K3, K4, K5 (``bench_sw.run``): each held against
+12. assembly-local (configuration 3): 5,000 pairs of 2 x 150 bp (error
+   rate 0.005) over the reference's first 50 kb through ``BFC`` (train,
+   error_correct) and ``FermiAssembler.perform_assembly`` on the card,
+   counters reset just before and read just after: exactly one contig,
+   >= 99% of the window and an exact substring of it or of its reverse
+   complement; corrected reads, contigs, unitig links and GFA text equal
+   to the port's CPU run byte for byte; stage times, peak device memory,
+   and one walk again under torch.profiler (launches, busy share);
+13. bfc-genome: BFC on the whole reference at 30x (460,000 pairs of 2 x
+   150 bp, error rate 0.005) on the card, counters reset just before and
+   read just after: the card's k-mer table equals the port's CPU count,
+   4,096 walked rows equal a CPU walk with the card's table, and the
+   reads equal to their error-free truth (from the read names) reach
+   ``before + 0.5 (n - before)`` and 90%; corrected reads/s and
+   bases/s, stage times, unique k-mers, kcov, min_cov, peak memory, and
+   one traced walk;
+14. rectangle kernels K3, K4, K5 (``bench_sw.run``): each held against
    its plain version on the card, tolerance 0, on bench.py's inputs, the
    variant sweep's and a set of short and empty lanes, at zdrop 0 and
    100 (K5: 100 only); then timed on the extension bench path (device
    time per launch and per-call wrapper time, as for K1 and K2), whose
    launches they report;
-13. one JSON line of all five kernels' numbers; K1's and K2's carry
-   their launches on each path (``by_path``: main, overflow, long,
-   paired), and on the long path their mean device ms and bound.
+15. one JSON line of all five kernels' numbers, each with its launches
+   on each path it has (``by_path``: K1 and K2 main, overflow, long,
+   paired; K3-K5 bench; all five assembly, where no TPU-kernel
+   counterpart runs), K1's and K2's long path with their mean device ms
+   and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
@@ -92,13 +111,16 @@ import torch
 
 from seqlib_tpu_torch import bench_sw
 from seqlib_tpu_torch.align import BWAAligner
+from seqlib_tpu_torch.assembly import BFC, FermiAssembler
+from seqlib_tpu_torch.assembly.bfc import encode_reads
 from seqlib_tpu_torch.core.seq import revcomp
+from seqlib_tpu_torch.core.unaligned import UnalignedSequence
 from seqlib_tpu_torch.bench_sw import (band_cells_needed, cuda_ms,
                                        device_ms, k1_edge_inputs,
                                        k1_long_inputs, max_abs_diff, roof_ms,
                                        smi_name_power)
 from seqlib_tpu_torch.index import FMIndex
-from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, sw_cuda
+from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, kmer, sw_cuda
 from seqlib_tpu_torch.ops.fm import _smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch
 from seqlib_tpu_torch.sim import (edge_read_batch, make_genome,
@@ -122,6 +144,10 @@ PAIR_CHECK = 512                   # pairs held against the CPU run
 K1_LONG_EDGES = [(Lq, w, z) for Lq in (4095, 4096, 4097, 6200)
                  for w in (32, 100) for z in (0, 100)] + [(30_000, 100, 100)]
 K2_LONG_EDGES = (12_289, 60_000)
+ASM_WINDOW = 50_000                # assembly-local: genome[0:50 kb], before
+ASM_PAIRS = 5_000                  # the first planted repeat slot
+BFC_PAIRS = GENOME_BP * 30 // (2 * READ_BP)   # bfc-genome: 30x of 2 x 150 bp
+BFC_SAMPLE = 4096                  # walked rows held against a CPU walk
 GOLDEN_REPEAT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tests", "golden", "sam_repeat_1k.txt")
 K1_OPS_PER_CELL = 14               # int32 ops per band cell
@@ -494,6 +520,24 @@ class StageTimer:
          "rescue: dedup, global DP, records"),
     )
 
+    # BFC (train, the weak pre-scan, the spectrum walk) and assembly
+    BFC_TARGETS = (
+        ("seqlib_tpu_torch.assembly.bfc", "BFC", "train",
+         "BFC.train: count on the card, host table"),
+        ("seqlib_tpu_torch.assembly.bfc", None, "weak_reads_device",
+         "BFC weak pre-scan"),
+        ("seqlib_tpu_torch.assembly.bfc", None, "correct_reads_device",
+         "BFC spectrum walk"),
+    )
+    ASM_TARGETS = BFC_TARGETS + (
+        ("seqlib_tpu_torch.assembly.fermi", "FermiAssembler",
+         "_kmer_filter", "assembly: k-mer read filter"),
+        ("seqlib_tpu_torch.assembly.fermi", None, "find_overlaps",
+         "assembly: overlaps (host numpy)"),
+        ("seqlib_tpu_torch.assembly.fermi", "FermiAssembler", "_assemble",
+         "assembly in all"),
+    )
+
     def __init__(self, targets=TARGETS):
         self.targets = targets
         self.ms: dict[str, float] = {}
@@ -528,36 +572,46 @@ class StageTimer:
             setattr(owner, attr, orig)
 
 
-def profile_batch(aln, batch, card: str) -> None:
-    """torch.profiler over one batch: device kernel time, its share of
-    the batch's wall time, and the top kernels.  A profiler that records
-    no device events says so; any other profiler failure fails the run."""
+def traced(fn, what: str, card: str, top: int = 10):
+    """torch.profiler over one call of fn(): device events, their time,
+    its share of the call's wall time, and the top kernels.  Returns
+    (device events, busy share) or None where the profiler records no
+    device events (it says so); any other profiler failure fails the
+    run."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.time()
-        aln.align_batch_bam([s for _, s in batch], [n for n, _ in batch],
-                            sam=True)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
-        log(f"profiler: no device events recorded; device busy share not "
-            f"measured [{card}]")
-        return
+        log(f"profiler: no device events recorded in {what}; device busy "
+            f"share not measured [{card}]")
+        return None
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     by_name: dict[str, list] = {}
     for e in kern:
         v = by_name.setdefault(e.name, [0.0, 0])
         v[0] += e.time_range.elapsed_us() / 1e3
         v[1] += 1
-    log(f"profiler: {len(kern)} kernel launches, {busy:.1f} ms of device "
-        f"time in a {1e3 * wall:.1f} ms batch (traced): device busy "
-        f"{100 * busy / (1e3 * wall):.1f}% [{card}]")
-    for k, (ms, n) in sorted(by_name.items(), key=lambda t: -t[1][0])[:10]:
+    share = busy / (1e3 * wall)
+    log(f"profiler: {len(kern)} device events (kernel launches and copies),"
+        f" {busy:.1f} ms of device time in {what} of {1e3 * wall:.1f} ms "
+        f"(traced): device busy {100 * share:.1f}% [{card}]")
+    for k, (ms, n) in sorted(by_name.items(), key=lambda t: -t[1][0])[:top]:
         log(f"  {k[:64]:64s} {ms:8.2f} ms x{n}")
+    return len(kern), share
+
+
+def profile_batch(aln, batch, card: str) -> None:
+    """torch.profiler over one main-path batch (``traced``)."""
+    traced(lambda: aln.align_batch_bam([s for _, s in batch],
+                                       [n for n, _ in batch], sam=True),
+           "a batch", card)
 
 
 def check_recorded(rec: Recorder, what: str) -> None:
@@ -988,6 +1042,219 @@ def long_edge_phase(dev, fm, genome: str, card: str) -> None:
             f"{1e3 * ms / max(steps, 1):.3f} us a step [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# BFC error correction and string-graph assembly
+# ---------------------------------------------------------------------------
+
+class WalkRecorder:
+    """Keeps the inputs and outputs of each spectrum walk BFC runs (by
+    reference: the walk changes none of its inputs)."""
+
+    def __init__(self):
+        self.calls: list = []
+        self._orig = None
+
+    def __enter__(self):
+        import seqlib_tpu_torch.assembly.bfc as bfc_mod
+        self._mod, self._orig = bfc_mod, bfc_mod.correct_reads_device
+
+        def walk(*a):
+            out = self._orig(*a)
+            self.calls.append((a, out))
+            return out
+
+        bfc_mod.correct_reads_device = walk
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.correct_reads_device = self._orig
+
+
+def run_assembly(reads: list[str], dev):
+    """BFC train and error_correct, then FermiAssembler.perform_assembly
+    on the corrected reads, on ``dev``; returns (bfc, assembler)."""
+    b = BFC(device=dev)
+    for s in reads:
+        b.add_sequence(s)
+    b.train()
+    b.error_correct()
+    f = FermiAssembler(device=dev)
+    f.add_reads([UnalignedSequence(f"r{i}", s)
+                 for i, s in enumerate(b.m_seqs)])
+    f.perform_assembly()
+    return b, f
+
+
+def _gfa(f) -> str:
+    buf = io.StringIO()
+    f.write_gfa(buf)
+    return buf.getvalue()
+
+
+def log_stages(st: StageTimer) -> None:
+    log("  stages (host clock, synchronised):")
+    for k, v in st.ms.items():
+        log(f"    {k:42s} {v:9.1f} ms x{st.calls[k]}")
+
+
+def walk_trace(rec: WalkRecorder, what: str, card: str):
+    """The last recorded walk again under torch.profiler: its launches
+    and the device's busy share."""
+    args, _ = rec.calls[-1]
+    res = traced(lambda: kmer.correct_reads_device(*args), what, card, top=6)
+    B, L = args[0].shape
+    if res:
+        log(f"{what}: {res[0]} device events for B = {B} reads of up to "
+            f"{L} columns, device busy {100 * res[1]:.1f}% [{card}]")
+    return res
+
+
+def assembly_local_phase(genome: str, card: str) -> dict:
+    """Configuration 3: 5,000 pairs of 2 x 150 bp (error rate 0.005, seed
+    7) over genome[0:50 kb] through BFC and FermiAssembler on the card,
+    counters reset just before and read just after: exactly one contig,
+    >= 99% of the window, an exact substring of it or of its reverse
+    complement; corrected reads, contigs, unitig links and GFA text
+    equal to the port's CPU run."""
+    window = genome[:ASM_WINDOW]
+    r1, r2 = simulate_pairs([("win", window)], ASM_PAIRS, read_len=READ_BP,
+                            error_rate=0.005, seed=7)
+    reads = [u.seq for u in r1 + r2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with StageTimer(StageTimer.ASM_TARGETS) as st, WalkRecorder() as wr:
+        cuda_lib.reset_launches()
+        t0 = time.time()
+        b, f = run_assembly(reads, "cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ctgs = f.get_contigs()
+    log(f"assembly-local: {len(reads)} reads over a {ASM_WINDOW} bp window: "
+        f"BFC (k {b.kmer}, kcov {b.kcov:.3f}, min_cov {b.min_cov}, "
+        f"{b.table.keys.size} unique k-mers, {len(wr.calls[0][0][0])} reads "
+        f"walked) and assembly in {wall:.2f} s; {len(ctgs)} contig(s) of "
+        f"{[len(c) for c in ctgs]} bp; peak device memory {peak:.0f} MiB; "
+        f"launches {launches} [{card}]")
+    log_stages(st)
+    graph = st.ms["assembly in all"] - st.ms["assembly: k-mer read filter"] \
+        - st.ms["assembly: overlaps (host numpy)"]
+    log(f"    {'assembly: graph, unitigs (host numpy)':42s} {graph:9.1f} ms")
+    if len(ctgs) != 1 or len(ctgs[0]) < 0.99 * len(window) \
+            or not (ctgs[0] in window or revcomp(ctgs[0]) in window):
+        raise AssertionError("assembly-local: not one exact contig over "
+                             ">= 99% of the window")
+    t0 = time.time()
+    bc, fc = run_assembly(reads, "cpu")
+    links = [u.links for u in f.get_unitigs()]
+    if bc.m_seqs != b.m_seqs or fc.get_contigs() != ctgs \
+            or [u.links for u in fc.get_unitigs()] != links \
+            or _gfa(fc) != _gfa(f):
+        raise AssertionError("assembly-local: GPU and CPU runs differ")
+    log(f"assembly-local: corrected reads, contigs, unitig links and GFA "
+        f"text == the CPU run's byte for byte (CPU run "
+        f"{time.time() - t0:.1f} s)")
+    walk_trace(wr, "assembly-local: one traced walk", card)
+    return launches
+
+
+def pair_truths(names: list[str], genome: str) -> list[tuple[str, str]]:
+    """Each read's error-free truth, from the fragment named in
+    ``simulate_pairs``'s read name: its start, or the reverse complement
+    of its end (a read is one of the two)."""
+    out = []
+    for nm in names:
+        beg, end = (int(x) for x in nm.rsplit("_", 5)[1:3])
+        out.append((genome[beg - 1:beg - 1 + READ_BP],
+                    revcomp(genome[end - READ_BP:end])))
+    return out
+
+
+def truth_matches(truths, seqs: list[str]) -> int:
+    return sum(s == a or s == b for (a, b), s in zip(truths, seqs))
+
+
+def bfc_genome_phase(genome: str, card: str) -> dict:
+    """BFC on the whole reference at 30x (2 x 150 bp pairs, error rate
+    0.005) on the card, counters reset just before and read just after:
+    the card's table equals the port's CPU count, a sample of walked
+    rows equals a CPU walk with the card's table, and the corrected
+    reads reach the bar of tests/test_assembly.py against their truth."""
+    t0 = time.time()
+    r1, r2 = simulate_pairs([("sim_chr", genome)], BFC_PAIRS,
+                            read_len=READ_BP, dist=400, stdev=40,
+                            error_rate=0.005, seed=31)
+    reads = [u.seq for u in r1 + r2]
+    names = [u.name for u in r1 + r2]
+    del r1, r2
+    n = len(reads)
+    log(f"bfc-genome: {n} reads ({n * READ_BP} bases) simulated in "
+        f"{time.time() - t0:.1f} s")
+    b = BFC(device="cuda")
+    for s in reads:
+        b.add_sequence(s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with StageTimer(StageTimer.BFC_TARGETS) as st, WalkRecorder() as wr:
+        cuda_lib.reset_launches()
+        t0 = time.time()
+        b.train()
+        b.error_correct()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    (wargs, (wcodes, wnchg)), = wr.calls
+    log(f"bfc-genome: train + error_correct {wall:.2f} s = {n / wall:.0f} "
+        f"corrected reads/s, {n * READ_BP / wall:.0f} bases/s; k "
+        f"{b.kmer}, {b.table.keys.size} unique k-mers, kcov {b.kcov:.4f}, "
+        f"min_cov {b.min_cov}; {wargs[0].shape[0]} reads walked, "
+        f"{int((wnchg > 0).sum())} changed; peak device memory {peak:.0f} "
+        f"MiB; launches {launches} [{card}]")
+    log_stages(st)
+    # the card's table against the port's CPU count on the same reads
+    t0 = time.time()
+    reads_np, lens_np = encode_reads(reads)
+    keys_c, cnt_c = kmer.count_kmers_device(*kmer.canonical_kmers_device(
+        torch.from_numpy(reads_np), torch.from_numpy(lens_np), b.kmer))
+    keys_g, cnt_g = (x.cpu() for x in b._dev)
+    if not (torch.equal(keys_g, keys_c) and torch.equal(cnt_g, cnt_c)):
+        raise AssertionError("bfc-genome: the card's table differs from the "
+                             "CPU count")
+    log(f"bfc-genome: the card's table == the CPU count ({keys_c.numel()} "
+        f"keys, {int(cnt_c.sum())} k-mers; CPU {time.time() - t0:.1f} s)")
+    del keys_c, cnt_c
+    # a sample of walked rows, walked on the CPU with the card's table
+    t0 = time.time()
+    rows = torch.from_numpy(np.sort(np.random.default_rng(5).choice(
+        wargs[0].shape[0], min(BFC_SAMPLE, wargs[0].shape[0]),
+        replace=False))).to(wargs[0].device)
+    sl = wargs[1][rows]
+    L = int(sl.max())
+    cc, cn = kmer.correct_reads_device(wargs[0][rows, :L].cpu(), sl.cpu(),
+                                       keys_g, cnt_g, *wargs[4:])
+    if not (torch.equal(cc, wcodes[rows, :L].cpu())
+            and torch.equal(cn, wnchg[rows].cpu())):
+        raise AssertionError("bfc-genome: walked rows differ from a CPU "
+                             "walk with the card's table")
+    log(f"bfc-genome: {rows.numel()} walked rows == a CPU walk with the "
+        f"card's table ({int((cn > 0).sum())} of them changed; CPU "
+        f"{time.time() - t0:.1f} s)")
+    # against the truth in the read names
+    t0 = time.time()
+    truths = pair_truths(names, genome)
+    before = truth_matches(truths, reads)
+    after = truth_matches(truths, b.m_seqs)
+    log(f"bfc-genome: reads equal to their truth {before} -> {after} of {n}"
+        f" ({100 * before / n:.2f}% -> {100 * after / n:.2f}%; check "
+        f"{time.time() - t0:.1f} s)")
+    if after < before + 0.5 * (n - before) or after < 0.9 * n:
+        raise AssertionError("bfc-genome: correction below the bar")
+    walk_trace(wr, "bfc-genome: one traced walk", card)
+    return launches
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1247,11 +1514,27 @@ def main() -> int:
     log(f"long-read, paired and long edge phases: {time.time() - t_new:.1f} s"
         f" [{card}]")
 
+    # ---- BFC and assembly ----------------------------------------------------
+    t0 = time.time()
+    asm_launches = assembly_local_phase(genome, card)
+    log(f"assembly-local phase: {time.time() - t0:.1f} s")
+    t1 = time.time()
+    bfc_launches = bfc_genome_phase(genome, card)
+    log(f"bfc-genome phase: {time.time() - t1:.1f} s; both assembly phases "
+        f"{time.time() - t0:.1f} s [{card}]")
+    asm_launches = {k: asm_launches[k] + bfc_launches[k]
+                    for k in cuda_lib.LAUNCHES}
+
     # ---- K3, K4, K5 on the extension bench path --------------------------------
     t0 = time.time()
     bench = bench_sw.run(dev, log=log)
     for k in bench_sw.RECT_KERNELS:
-        kernels[k] = bench[k]
+        kernels[k] = dict(bench[k], by_path=dict(
+            bench=path_fields(bench[k]["launches"])))
+    for k, v in kernels.items():
+        counter = bench_sw.RECT_KERNELS[k].counter \
+            if k in bench_sw.RECT_KERNELS else k
+        v["by_path"]["assembly"] = path_fields(asm_launches[counter])
     log(f"extension bench (checks + timing): {time.time() - t0:.1f} s; "
         "launches on the bench path: "
         f"{ {k: bench[k]['launches'] for k in bench_sw.RECT_KERNELS} }")

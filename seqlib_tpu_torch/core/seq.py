@@ -5,7 +5,7 @@
 * nib code (BAM 4-bit): ``=ACMGRSVTWYHKDBN``, two bases per byte in a
   BAM record; ``ASCII_TO_NIB`` maps either case, anything else to 15.
 * ``revcomp`` complements A/C/G/T (either case) and keeps every other
-  byte, then reverses.
+  byte, then reverses; ``revcomp_nt4`` does the same on nt4 codes.
 """
 
 from __future__ import annotations
@@ -41,3 +41,17 @@ def revcomp(seq: str) -> str:
     """Reverse complement of an ASCII sequence."""
     arr = np.frombuffer(seq.encode(), dtype=np.uint8)
     return COMPLEMENT_TABLE[arr][::-1].tobytes().decode()
+
+
+NT4_TO_ASCII = np.frombuffer(b"ACGTN", dtype=np.uint8)
+
+
+def decode_nt4(codes: np.ndarray) -> str:
+    """nt4 codes -> ASCII string (4 -> 'N')."""
+    return NT4_TO_ASCII[np.asarray(codes, dtype=np.uint8)].tobytes().decode()
+
+
+def revcomp_nt4(codes: np.ndarray) -> np.ndarray:
+    """Reverse complement in nt4 space: c -> 3-c for c<4, N stays N."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    return np.where(codes < 4, 3 - codes, codes)[::-1]

@@ -15,6 +15,10 @@ share with a random 3' tail.  ``simulate_pairs`` is the port's copy of
 ``seqlib_tpu.sim.simulate_pairs`` (wgsim-like pairs, truth in the
 names): the same seed gives the same pairs.
 
+``kmer_batch`` and ``kmer_region_reads`` are the seeded k-mer test
+batches (random reads with repeats, and a 4 kb region with a planted
+tie, an N and an early error) that the k-mer pipeline is checked on.
+
 ``make_repeat_genome`` / ``make_repeat_reads`` are the port's copy of
 the hermetic repeat corpus of ``tests/regen_golden.py`` (131 kb contig
 'rep1', 1000 reads in 10 classes), whose golden SAM
@@ -226,6 +230,74 @@ def edge_read_batch(genome: str, B: int, L: int, seed: int = 0):
     reads[np.arange(L)[None, :] >= lens[:, None]] = 4
     active = (lens > 0) & (idx % 11 != 5)
     return reads, lens, active
+
+
+def kmer_batch():
+    """24 reads of 72 random bases (seed 0), one N and one read of 40;
+    rows 12-17 repeat rows 0-5 and rows 18-23 are the reverse
+    complements of rows 6-11, so a table of them has counts of 2 and
+    more.  Returns (reads uint8 [24, 72], lens int64)."""
+    rng = np.random.default_rng(0)
+    B, L = 24, 72
+    reads = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    reads[12:18] = reads[0:6]
+    reads[18:24] = 3 - reads[6:12, ::-1]
+    reads[3, 10] = 4
+    lens = np.full(B, L, np.int64)
+    lens[5] = 40
+    reads[5, 40:] = 4
+    return reads, lens
+
+
+KMER_READ = 80
+KMER_REP = (1000, 3000)           # a 200 bp segment planted twice
+KMER_REP_DIFF = 100               # the copies differ here: A, then C
+
+
+def kmer_region_reads():
+    """A seeded 4 kb region with a 200 bp segment at 1000 and 3000 whose
+    copies differ in one base (A at 1100, C at 3100).  Error-free reads
+    of 80 bp tile the region every 4 bp on alternating strands, so both
+    copies have the same counts; 150 reads with 1% substitutions start
+    away from the copies; then five probes: a read with G at 1100 (50
+    bases in; its candidates A and C tie), one from 2000 with an N at
+    60, one from 2500 with an error at 5 (left of its first solid
+    window), one of 12 bases (shorter than every k) and one of 20.
+    Returns (region codes, reads uint8 [B, 80], lens int64, index of the
+    first probe)."""
+    rng = np.random.default_rng(42)
+    g = rng.integers(0, 4, 4000).astype(np.uint8)
+    seg = rng.integers(0, 4, 200).astype(np.uint8)
+    for r in KMER_REP:
+        g[r:r + seg.size] = seg
+    g[KMER_REP[0] + KMER_REP_DIFF], g[KMER_REP[1] + KMER_REP_DIFF] = 0, 1
+    n = KMER_READ
+
+    def rc(x):
+        return 3 - x[::-1]
+
+    reads = [g[s:s + n] if i % 2 == 0 else rc(g[s:s + n])
+             for i, s in enumerate(range(0, g.size - n + 1, 4))]
+    for s in np.concatenate([rng.integers(1300, 2800 - n, 100),
+                             rng.integers(3300, 4000 - n, 50)]):
+        x = g[s:s + n].copy()
+        err = np.flatnonzero(rng.random(n) < 0.01)
+        x[err] = (x[err] + rng.integers(1, 4, err.size)) % 4
+        reads.append(x if rng.random() < 0.5 else rc(x))
+    at = KMER_REP[0] + KMER_REP_DIFF
+    tie = g[at - 50:at + 30].copy()
+    tie[50] = 2
+    nread = g[2000:2000 + n].copy()
+    nread[60] = 4
+    back = g[2500:2500 + n].copy()
+    back[5] = (back[5] + 1) % 4
+    n_plain = len(reads)
+    reads += [tie, nread, back, g[100:112].copy(), g[200:220].copy()]
+    lens = np.array([len(x) for x in reads], np.int64)
+    arr = np.full((len(reads), n), 4, np.uint8)
+    for i, x in enumerate(reads):
+        arr[i, :len(x)] = x
+    return g, arr, lens, n_plain
 
 
 def make_repeat_genome() -> str:

@@ -10,19 +10,24 @@ without one, so every test worker collects the same tests.  Outputs are
 integers and must be bit-equal (tolerance 0).
 """
 
+import io
+
 import numpy as np
 import pytest
 import torch
 
 from seqlib_tpu_torch.align import BWAAligner
 from seqlib_tpu_torch.align.pairing import align_pairs
+from seqlib_tpu_torch.assembly import BFC, FermiAssembler
 from seqlib_tpu_torch.bench_sw import (RECT_KERNELS, k1_edge_inputs,
                                        k1_long_inputs)
 from seqlib_tpu_torch.index import FMIndex
-from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, sw_cuda
+from seqlib_tpu_torch.core.unaligned import UnalignedSequence
+from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, kmer, sw_cuda
 from seqlib_tpu_torch.ops.fm import DeviceFMIndex, _smem_machine, smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch, extend_rect
-from seqlib_tpu_torch.sim import (edge_read_batch, make_genome,
+from seqlib_tpu_torch.sim import (edge_read_batch, kmer_batch,
+                                  kmer_region_reads, make_genome,
                                   make_repeat_genome, make_repeat_reads,
                                   simulate_long_reads, simulate_pairs,
                                   simulate_reads)
@@ -249,3 +254,61 @@ def test_overflow_batch_gpu_equals_cpu(cuda):
     assert gf == cf == 2
     assert g[0] == c[0]
     assert np.array_equal(g[1], c[1])
+
+
+@pytest.mark.parametrize("k", [15, 16, 17, 25, 31, 32])
+def test_kmer_pipeline_gpu_equals_cpu(cuda, k):
+    """ops/kmer on the card == on the CPU: keys and validity, the table,
+    lookups, weak flags, and the walk at two min_cov (its tie probe
+    takes A, the first maximum, and its N probe gets a base)."""
+    out = {}
+    for dev in ("cpu", cuda):
+        reads, lens = (torch.from_numpy(a).to(dev) for a in kmer_batch())
+        can, valid = kmer.canonical_kmers_device(reads, lens, k)
+        keys, cnt = kmer.count_kmers_device(can, valid)
+        res = [can, valid, keys, cnt,
+               kmer.lookup_kmers_device(keys, cnt, can)]
+        res += [kmer.weak_reads_device(reads, lens, keys, cnt, k, m)
+                for m in (2, 3)]
+        g, rr, rl, n_plain = kmer_region_reads()
+        rr, rl = torch.from_numpy(rr).to(dev), torch.from_numpy(rl).to(dev)
+        rk, rc = kmer.count_kmers_device(
+            *kmer.canonical_kmers_device(rr, rl, k))
+        for m in (4, 13):
+            res += kmer.correct_reads_device(rr, rl, rk, rc, k, m)
+        out[str(dev)] = [x.cpu() for x in res]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    codes = out["cuda"][7]
+    assert int(codes[n_plain, 50]) == 0
+    assert int(codes[n_plain + 1, 60]) == int(g[2060])
+
+
+def test_assembly_gpu_equals_cpu(cuda):
+    """BFC and FermiAssembler on the card == on the CPU: corrected reads,
+    table, contigs and GFA text."""
+    rng = np.random.default_rng(2024)
+    region = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 4000)] \
+        .tobytes().decode()
+    r1, r2 = simulate_pairs([("r", region)], 550, read_len=150,
+                            error_rate=0.005, seed=3)
+    out = {}
+    for dev in (cuda, "cpu"):
+        b = BFC(device=dev)
+        for u in r1 + r2:
+            b.add_sequence(u.seq)
+        b.train()
+        b.error_correct()
+        f = FermiAssembler(device=dev)
+        f.add_reads([UnalignedSequence(f"r{i}", s)
+                     for i, s in enumerate(b.m_seqs)])
+        f.correct_reads()
+        assert f._flt_cache[1][0].device.type == torch.device(dev).type
+        f.perform_assembly()
+        gfa = io.StringIO()
+        f.write_gfa(gfa)
+        out[str(dev)] = (b.m_seqs, b.table.keys.tolist(),
+                         b.table.counts.tolist(), b.kcov, f.m_seqs,
+                         f.get_contigs(), gfa.getvalue())
+    assert out["cuda"] == out["cpu"]
+    assert len(out["cuda"][5]) >= 1

@@ -58,22 +58,33 @@ def test_port_imports_no_jax_nor_jax_package():
               "seqlib_tpu_torch.core.cigar", "seqlib_tpu_torch.core.header",
               "seqlib_tpu_torch.core.record",
               "seqlib_tpu_torch.core.unaligned", "seqlib_tpu_torch.io.bam",
-              "seqlib_tpu_torch.sim"):
+              "seqlib_tpu_torch.sim", "seqlib_tpu_torch.ops.kmer",
+              "seqlib_tpu_torch.assembly", "seqlib_tpu_torch.assembly.bfc",
+              "seqlib_tpu_torch.assembly.overlap",
+              "seqlib_tpu_torch.assembly.sgraph",
+              "seqlib_tpu_torch.assembly.fermi", "seqlib_tpu_torch.io.fastq"):
         assert m in res["mods"], m
 
 
 def test_entry_points_default_to_cuda():
     from seqlib_tpu_torch.align import BWAAligner
+    from seqlib_tpu_torch.assembly import BFC, FermiAssembler
     from seqlib_tpu_torch.index import FMIndex
     from seqlib_tpu_torch.ops.fm import DeviceFMIndex
     idx = FMIndex.construct([("c", "ACGT" * 300 + "GATTACA" * 50)])
     if torch.cuda.is_available():
         assert BWAAligner(idx).device.type == "cuda"
+        assert BFC().device.type == "cuda"
+        assert FermiAssembler().device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BWAAligner(idx)
     with pytest.raises(RuntimeError):
         DeviceFMIndex.from_host(idx)
+    for entry in (BFC, FermiAssembler):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
+        assert entry(device="cpu").device.type == "cpu"
     assert BWAAligner(idx, device="cpu").device.type == "cpu"
 
 
