@@ -83,9 +83,15 @@ last line is printed):
 14. rectangle kernels K3, K4, K5 (``bench_sw.run``): each held against
    its plain version on the card, tolerance 0, on bench.py's inputs, the
    variant sweep's and a set of short and empty lanes, at zdrop 0 and
-   100 (K5: 100 only); then timed on the extension bench path (device
-   time per launch and per-call wrapper time, as for K1 and K2), whose
-   launches they report;
+   100 (K5: 100 only), and on the stop-row lanes
+   (``bench_sw.rect_stop_inputs``: z-drop stops on rows 0, 1, P - 2 ..
+   P and 2P of each pipeline depth P of K4 and K5, ties, empty and
+   oversized lanes) at Lt 31, 60, 250 and 1023, zdrop also 7 and 10^6;
+   then timed on the extension bench path (device time per launch and
+   per-call wrapper time, as for K1 and K2, beside the earlier layouts'
+   times (PERF.md run P4-C), and
+   each variant's longest lane alone: rows, pipeline steps, ns a step),
+   whose launches they report;
 15. one JSON line of all five kernels' numbers, each with its launches
    on each path it has (``by_path``: K1 and K2 main, overflow, long,
    paired; K3-K5 bench; all five assembly, where no TPU-kernel
@@ -150,7 +156,6 @@ BFC_PAIRS = GENOME_BP * 30 // (2 * READ_BP)   # bfc-genome: 30x of 2 x 150 bp
 BFC_SAMPLE = 4096                  # walked rows held against a CPU walk
 GOLDEN_REPEAT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tests", "golden", "sam_repeat_1k.txt")
-K1_OPS_PER_CELL = 14               # int32 ops per band cell
 # K2's int32 operations, counted from csrc/smem_machine.cu: per BWT word
 # a rank popcounts, 7 to build the word's mask (sub, max, min, test,
 # shift, sub, shift) and 8 per code (xor, not, shift, 3 ands, popc,
@@ -211,7 +216,7 @@ def k1_bound_ms(args, w: int, rows) -> tuple[float, str]:
     q, _, t, _, _ = args
     M = q.shape[0]
     nbytes = q.numel() + t.numel() + 3 * 4 * M + 5 * 4 * M
-    ops = K1_OPS_PER_CELL * band_cells_needed(args, w, rows)
+    ops = bench_sw.OPS_PER_CELL * band_cells_needed(args, w, rows)
     return roof_ms(nbytes, ops)
 
 
@@ -255,43 +260,6 @@ def check_adaptive(gen, dev):
             "(tolerance 0)")
 
 
-def _kernel_name(mangled: str) -> str:
-    """kernel or kernel<S, ...> from an Itanium-mangled entry name: the
-    last <length><identifier> of its (nested) name, then its int and bool
-    template arguments if it has any."""
-    pos = 3 if mangled.startswith("_ZN") else 2
-    name = mangled
-    while (m := re.match(r"\d+", mangled[pos:])):
-        pos += m.end()
-        name = mangled[pos:pos + int(m.group())]
-        pos += len(name)
-    tm = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
-    args = re.findall(r"L[ib](\d+)E", tm.group(1)) if tm else []
-    return name + (f"<{', '.join(args)}>" if args else "")
-
-
-def ptxas_report(text: str) -> list[tuple[str, int, int, int, int]]:
-    """(kernel, registers, stack-frame bytes, spill-store bytes,
-    spill-load bytes) per entry function of nvcc's ``-Xptxas -v``
-    output; a template instance is named kernel<S>."""
-    out, name, spill = [], None, (0, 0, 0)
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name = _kernel_name(m.group(1))
-            spill = (0, 0, 0)
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and name:
-            spill = tuple(int(g) for g in m.groups())
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.append((name, int(m.group(1)), *spill))
-            name = None
-    return out
-
-
 def sass_counts() -> dict[str, int]:
     """Static SASS instruction count of every kernel (template instance)
     in the built libraries, from ``cuobjdump -sass``; empty where the
@@ -308,7 +276,7 @@ def sass_counts() -> dict[str, int]:
         for line in text.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                name = f"{lib}:{_kernel_name(m.group(1))}"
+                name = f"{lib}:{cuda_lib.kernel_name(m.group(1))}"
                 out[name] = 0
             elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
                 out[name] += 1
@@ -1274,7 +1242,7 @@ def main() -> int:
     t0 = time.time()
     reports = cuda_lib.build_all()
     for k, rep in reports.items():
-        for kern, regs, frame, st, ld in ptxas_report(rep):
+        for kern, regs, frame, st, ld in cuda_lib.ptxas_report(rep):
             log(f"ptxas[{k}]: {kern}: {regs} registers, stack frame {frame}"
                 f" B, spill stores {st} B, spill loads {ld} B")
     for k, n in sass_counts().items():

@@ -24,8 +24,11 @@ Python wrapper from CUDA events over 10 back-to-back calls
 cells B*Lq*Lt (band cells for K1, counted as sw_banded_bench.py counts
 them).  K1 and K3 are also compared per DP
 cell the inputs need, device time on both sides.  Launches of the
-checks are not counted; ``run`` returns each kernel's launches over the
-timed part.  Every line names the card and its power limit.
+checks are not counted; ``run`` returns each kernel's full-batch
+launches of the timed part.  Each pipelined kernel's longest lane is
+also timed alone (its rows, pipeline steps and ns a step), in one-lane
+launches that are not counted.  Every line names the card and its power
+limit.
 """
 
 from __future__ import annotations
@@ -53,30 +56,61 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # int32 ALU peak: the data sheet's 67 TFLOP/s float32 counts an FMA as
 # two operations on 128 lanes per SM; Hopper has 64 INT32 lanes per SM
 INT32_OPS_PER_S = 67e12 / 4
-# int32 operations per DP cell, counted from the kernels' cell body:
-# F (2 subtractions, max), substitution score (compare, select), M (add),
-# hnd (max), E (scan term add, running max, subtract), H (max), the
-# column mask (compare), the best and row-max tests (2 compares)
-OPS_PER_CELL = 14
+# int32 instructions per DP cell, the fewest the card needs (a DPX
+# add-max, __viaddmax_s32, counted as one at the int32 rate): F (a
+# subtraction and an add-max), the substitution score (one byte-permute
+# lookup of the query code's score row by the column's target code),
+# H before E (an add-max of the diagonal and the score with F), H (an
+# add-max with the E carry), the next E (an add-max), the row max and
+# its first column (a max that sets a predicate, a select).  The best
+# cell, the z-drop test and gscore take the row maxima, once per row.
+OPS_PER_CELL = 8
+
+# the stop-row lanes' target widths and their extra zdrops: 7 (a
+# column tie decides whether a lane stops), 10^6 (only a row max <= 0
+# stops a lane)
+STOP_WIDTHS = (31, 60, 250, 1023)
+STOP_ZDROPS = (7, 10**6)
+
+
+def pipe_last(nch: int, Lt: int, tl: int) -> int:
+    """For step counts: the thread of its segment where a lane of tlen
+    tl ends each row, in K4 (nch = 1) or K5 (nch 2, 3) on targets of Lt
+    columns, as csrc/sw_rect.cu's launchers shape the pipeline."""
+    last = cuda_lib.load("sw_rect").sw_rect_pipe_last(Lt, nch, tl)
+    if last < 0:
+        raise ValueError(f"sw_rect_pipe_last: no pipeline for Lt={Lt}, "
+                         f"nch={nch}")
+    return last
+
 
 class RectKernel(NamedTuple):
     counter: str        # its launch counter (and C entry point)
     replaces: str       # the TPU kernel it replaces
     zdrops: tuple       # the zdrops it is checked at
     fns: dict           # its wrappers, by label
+    nch: dict           # per label: pipe_last's nch, or None (row order)
 
 
 RECT_KERNELS = {
     "K3": RectKernel("sw_extend_rect", "seqlib_tpu/ops/sw_pallas.py:55",
-                     (0, ZDROP), {"": extend_batch_rect}),
+                     (0, ZDROP), {"": extend_batch_rect}, {"": None}),
     "K4": RectKernel("sw_extend_rect_blocked",
                      "scripts/sw_variant_sweep.py:21", (0, ZDROP),
-                     {"": extend_v3}),
+                     {"": extend_v3}, {"": 1}),
     "K5": RectKernel("sw_extend_rect_interleaved",
                      "scripts/sw_variant_sweep.py:188", (ZDROP,),
                      {"nch=2": functools.partial(extend_v4, nch=2),
-                      "nch=3": functools.partial(extend_v4, nch=3)}),
+                      "nch=3": functools.partial(extend_v4, nch=3)},
+                     {"nch=2": 2, "nch=3": 3}),
 }
+# device ms per launch on these inputs of the earlier layouts (K4 a
+# blocked warp scan, K5 a thread per nch lanes with its rows in device
+# memory) and the chip run each was read in (PERF.md), H100 80GB HBM3,
+# 700 W
+EARLIER_MS = {("K3", ""): ("P4-C", 0.0302), ("K4", ""): ("P4-C", 0.0569),
+              ("K5", "nch=2"): ("P4-C", 4.3148),
+              ("K5", "nch=3"): ("P4-B", 6.70)}
 SOURCE = "seqlib_tpu_torch/csrc/sw_rect.cu"
 
 
@@ -191,6 +225,114 @@ def edge_inputs(dev, seed: int = 1):
     ql[short] = rng.integers(1, 21, int(short.sum()))
     ql[kind >= 0.9] = 0
     tl[(kind >= 0.85) & (kind < 0.9)] = 0
+    return _tensors(dev, q, ql, t, tl, h0)
+
+
+# the rows where rect_stop_inputs' lanes stop: 0, 1, P - 2, P - 1, P and
+# 2P for each pipeline depth P of kernels K4 and K5 (10, 16, 32)
+STOP_ROWS = sorted({0, 1} | {r for P in (10, 16, 32)
+                             for r in (P - 2, P - 1, P, 2 * P)})
+
+
+def _stop_lane(q, t, R: int, Lt: int) -> int:
+    """Make lane (q, t) stop on row R under any zdrop > 0; returns its
+    h0.  The target's first r + 1 codes copy the query's, and the query
+    is N (code 4) after row r, so row r holds the peak h0 + r + 1 on the
+    diagonal and row r + d's max is max(peak - 4d, peak - 6 - d) at the
+    default penalties (a mismatch run or an insertion from the peak): it
+    falls to <= 0 on a chosen row, while the gap-corrected drop stays <=
+    6.  R = 0 copies nothing and takes h0 = 2 (row 0's max is h0 - 4)."""
+    if R == 0:
+        q[:] = 4
+        return 2
+    if R <= 2:                      # peak <= 4 stops at d = 1, <= 8 at 2
+        r, h0 = (0, 3) if R == 1 else (0, 5)
+    else:                           # d = peak - 6 >= 3
+        r = min((R - 3) // 2, Lt - 1)
+        h0 = R - 2 * r + 5
+    t[:r + 1] = q[:r + 1]
+    q[r + 1:] = 4
+    return h0
+
+
+def rect_stop_inputs(dev, seed: int = 0, M: int = 64, Lq: int = 150,
+                     Lt: int = 250):
+    """Lanes whose z-drop stop lands on chosen rows, for the pipelined
+    kernels K4 and K5, which compute P rows at once and drop the rows
+    past a stop (the default penalties; every stop below holds for any
+    zdrop > 0 and comes from the row max falling to <= 0, the
+    gap-corrected drop never exceeding 6):
+
+    * a stop on each row of ``STOP_ROWS`` below Lq and on the last row
+      Lq - 1, three times: qlen = Lq; qlen = stop row + 1 (gscore on
+      the stop row); qlen = stop row + 2 (the last row is one past the
+      stop, so its gscore is dead);
+    * an exact tie between two columns of one row: row r + 2 after a
+      peak on row r holds peak - 8 at columns r + 1 and r + 3, for r + 1,
+      r + 3 on both sides of a strip edge of 4, 8, 16 and 32 columns
+      (columns 7 | 9, 14 | 16, 30 | 32); with qlen = r + 3 it is the
+      gscore row, and at zdrop 7 the smaller column keeps the lane
+      alive (drop 6) where the larger one would stop it (drop 8);
+    * an exact tie between two rows' maxima (the best cell): a peak on
+      row r, one mismatch, four matches, the peak again on row r + 5;
+    * two lanes of identical query and target (never stopped by the gap
+      test; the row max stays positive), h0 in {0, 3, 5} (h0 < o_del,
+      so row 0 of the rectangle is dead past column 0), qlen = 0, qlen >
+      Lq, tlen = 0 and tlen > Lt;
+    * random lanes (codes 0-4) up to M lanes.
+
+    Lane order is fixed; rows up to 2 * 32 need Lq >= 66 and Lt >= 32.
+    """
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (M, Lq)).astype(np.int8)
+    t = rng.integers(0, 4, (M, Lt)).astype(np.int8)
+    ql = np.full(M, Lq, np.int32)
+    tl = np.full(M, Lt, np.int32)
+    h0 = np.full(M, 30, np.int32)
+    m = 0
+    for R in [R for R in STOP_ROWS if R < Lq - 1] + [Lq - 1]:
+        for last in (Lq, R + 1, R + 2):
+            h0[m] = _stop_lane(q[m], t[m], R, Lt)
+            ql[m] = last
+            m += 1
+    for r in (6, 13, 29):                   # column ties on row r + 2
+        if r + 3 > min(Lt, Lq - 1):
+            continue
+        for last in (False, True):
+            t[m, :r + 1] = q[m, :r + 1]
+            q[m, r + 1:] = 4
+            h0[m] = 20
+            if last:
+                ql[m] = r + 3
+            m += 1
+    for r in (9, 31):                       # row tie: rows r and r + 5
+        if r + 6 > min(Lt, Lq - 1):
+            continue
+        t[m, :r + 1] = q[m, :r + 1]
+        t[m, r + 1] = (q[m, r + 1] + 1) % 4
+        t[m, r + 2:r + 6] = q[m, r + 2:r + 6]
+        q[m, r + 6:] = 4
+        h0[m] = 10
+        m += 1
+    n = min(Lq, Lt)
+    for k in range(2):                      # identical query and target
+        t[m, :n] = q[m, :n]
+        h0[m] = 1 + 40 * k
+        m += 1
+    for v in (0, 3, 5):                     # h0 < o_del
+        t[m, :n // 2] = q[m, :n // 2]
+        h0[m] = v
+        m += 1
+    ql[m], tl[m + 1], tl[m + 3] = 0, 0, Lt + 9
+    ql[m + 2] = Lq + 5
+    m += 4
+    if m > M:
+        raise ValueError(f"rect_stop_inputs: needs M >= {m}")
+    q[m:] = rng.integers(0, 5, (M - m, Lq))
+    t[m:] = rng.integers(0, 5, (M - m, Lt))
+    ql[m:] = rng.integers(1, Lq + 1, M - m)
+    tl[m:] = rng.integers(1, Lt + 1, M - m)
+    h0[m:] = rng.integers(0, 60, M - m)
     return _tensors(dev, q, ql, t, tl, h0)
 
 
@@ -313,22 +455,46 @@ def chained_ms(fn, args) -> float:
     return device_ms(chain, 1)
 
 
+def longest_lane(fn, args, rows, nch) -> dict:
+    """The lane with the most rows (from the plain version), alone on the
+    card, and an empty lane (qlen 0) alone, the launch's floor: device
+    ms of each, the lane's rows and the steps its dependent chain takes
+    (rows, or for the pipelined kernels rows + the segment's last live
+    thread + 1: its pipeline fill and the stop's broadcast), and ns a
+    step net of the floor."""
+    m = int(torch.argmax(rows))
+    one = [a[m:m + 1] for a in args]
+    empty = [a.clone() for a in one]
+    empty[1].zero_()
+    ms = device_ms(lambda: fn(*one, zdrop=ZDROP), 10)
+    ms0 = device_ms(lambda: fn(*empty, zdrop=ZDROP), 10)
+    n = int(rows[m])
+    steps = n if nch is None else n + pipe_last(
+        nch, one[2].shape[1], int(one[3][0])) + 1
+    return dict(rows=n, steps=steps, ms=ms, empty_ms=ms0,
+                step_ns=1e6 * (ms - ms0) / max(steps, 1))
+
+
 def run(dev, log=print) -> dict:
     """Check K3, K4, K5 (and K1 at band 100) against their plain
     versions on the card, then time them; returns, for K3-K5, the
-    fields of chip_smoke.py's kernel line (launches over the timed part,
-    max_abs_err, ms, event_ms, plain_ms, bound_ms, bound_by, ...).
+    fields of chip_smoke.py's kernel line (full-batch launches of the
+    timed part, max_abs_err, ms, event_ms, plain_ms, bound_ms, bound_by,
+    ...).
     Raises if a kernel differs from its plain version."""
     card = smi_name_power()
     sets = {"bench": bench_inputs(dev), "sweep": sweep_inputs(dev),
             "edges": edge_inputs(dev)}
+    stops = {f"stop{lt}": rect_stop_inputs(dev, Lt=lt)
+             for lt in STOP_WIDTHS}
     # ---- exactness first (these launches are not counted) ------------
     errs = {}
     for name, k in RECT_KERNELS.items():
         err = 0
         for label, fn in k.fns.items():
-            for sname, args in sets.items():
-                for zd in k.zdrops:
+            for sname, args in {**sets, **stops}.items():
+                zds = k.zdrops + (STOP_ZDROPS if sname in stops else ())
+                for zd in zds:
                     e = max_abs_diff(fn(*args, zdrop=zd),
                                      extend_rect(*args, zdrop=zd))
                     if e:
@@ -338,7 +504,9 @@ def run(dev, log=print) -> dict:
                     err = max(err, e)
         errs[name] = err
         log(f"{name} {SOURCE}: bit-equal to extend_rect on "
-            f"{'/'.join(sets)} x zdrop {k.zdrops} (tolerance 0)")
+            f"{'/'.join(sets)} x zdrop {k.zdrops} and the stop-row lanes "
+            f"at Lt {'/'.join(map(str, STOP_WIDTHS))} x zdrop "
+            f"{k.zdrops + STOP_ZDROPS} (tolerance 0)")
     for sname, args in sets.items():
         e = max_abs_diff(extend_batch_banded(*args, band=BAND, zdrop=ZDROP),
                          extend_batch(*args, band=BAND, zdrop=ZDROP))
@@ -357,21 +525,32 @@ def run(dev, log=print) -> dict:
         f"{rect_cells(args, plain['rows']) / 1e6:.2f} M cells needed of "
         f"{B * LQ * (LT + 1) / 1e6:.2f} M; plain extend_rect "
         f"{plain_ms:.1f} ms; bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
-    before = dict(cuda_lib.LAUNCHES)
+    # launches of full bench batches; the longest lane's one-lane
+    # launches are left out
+    launches = dict.fromkeys(cuda_lib.LAUNCHES, 0)
     out = {}
     for name, k in RECT_KERNELS.items():
         ms_each = []
         for label, fn in k.fns.items():
+            before = cuda_lib.LAUNCHES[k.counter]
             ev = cuda_ms(lambda: fn(*args, zdrop=ZDROP), 10)
             dv = device_ms(lambda: fn(*args, zdrop=ZDROP), 10)
-            ms_each.append((dv, ev))
             ch = chained_ms(functools.partial(fn, zdrop=ZDROP), args)
+            launches[k.counter] += cuda_lib.LAUNCHES[k.counter] - before
+            one = longest_lane(fn, args, plain["rows"], k.nch[label])
+            ms_each.append((dv, ev))
+            run_id, was = EARLIER_MS[name, label]
             log(f"{name} {label}: device time per launch {dv:.4f} ms "
-                f"(10 queued launches); {ev:.3f} ms/call with the "
-                f"wrapper (CUDA events over 10 calls); chained x{CHAIN}: "
-                f"{ch:.2f} ms = "
+                f"(10 queued launches; {run_id} {was}); "
+                f"{ev:.3f} ms/call with the wrapper (CUDA events over 10 "
+                f"calls); chained x{CHAIN}: {ch:.2f} ms = "
                 f"{cells_rect * CHAIN / (ch * 1e-3) / 1e9:.1f} Gcells/s "
-                f"(rectangle cells) [{card}]")
+                f"(rectangle cells); its longest lane alone: "
+                f"{one['rows']} rows, {one['steps']} steps, "
+                f"{one['ms']:.4f} ms, an empty lane alone "
+                f"{one['empty_ms']:.4f} ms: {one['step_ns']:.1f} ns a "
+                f"step net of it ({1e6 * one['ms'] / one['steps']:.1f} "
+                f"gross) [{card}]")
         # the first variant stands for the kernel (K5: nch = 2)
         out[name] = dict(
             name=k.counter, route="cuda", source=SOURCE,
@@ -402,7 +581,7 @@ def run(dev, log=print) -> dict:
         f"[{card}]")
     torch.cuda.synchronize()
     for name, v in out.items():
-        v["launches"] = cuda_lib.LAUNCHES[v["name"]] - before[v["name"]]
+        v["launches"] = launches[v["name"]]
         if v["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the bench path")
     return out
@@ -417,9 +596,10 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: "
           f"{smi_name_power()}", flush=True)
     for lib, rep in cuda_lib.build_all().items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas[{lib}]: {line.strip()}", flush=True)
+        for kern, regs, frame, st, ld in cuda_lib.ptxas_report(rep):
+            print(f"ptxas[{lib}]: {kern}: {regs} registers, stack frame "
+                  f"{frame} B, spill stores {st} B, spill loads {ld} B",
+                  flush=True)
     run(dev, log=lambda *a: print(*a, flush=True))
     return 0
 

@@ -6,7 +6,7 @@
 // kernel behind extend_batch_pallas_banded / extend_batch_adaptive).
 //
 // What bounds it on an H100: not bytes (a lane reads ~0.5 KB of query and
-// target and writes 20 B) and not the ~14 int32 operations per band cell
+// target and writes 20 B) and not the >= 8 int32 operations per band cell
 // (a main-path call needs ~1e7 cells: well under a microsecond of the
 // card's integer rate), but latency.  Each DP row depends on the one
 // before, and within a row the E (deletion) term of a cell depends on

@@ -13,12 +13,15 @@
 //                                 (NCH interleaved row chains)
 //
 // What bounds them on an H100: not bytes (a lane reads Lq + Lt code bytes
-// and writes 20 B) but the dependent integer work of the DP, ~14 int32
-// operations per cell, with the E (deletion) recurrence making each cell
-// of a row depend on every cell to its left.  At the extension bench's
-// shape (1024 lanes, 150 x 251 cells) a call is at most 38.6 M cells.
+// and writes 20 B) but the dependent integer work of the DP, at least 8
+// int32 instructions per cell (bench_sw.OPS_PER_CELL), with the E
+// (deletion) recurrence making each cell of a row depend on every cell
+// to its left.  At the extension bench's
+// shape (1024 lanes, 150 x 251 cells) a call is at most 38.6 M cells,
+// and z-drop stops most lanes early (6.8 M cells needed), so a call
+// lasts about as long as its longest lane's dependent chain.
 //
-// The three designs map the TPU kernels' ideas onto a warp:
+// The designs:
 // * K3: one warp per lane.  Thread t owns the contiguous strip of columns
 //   [t*S, t*S + S) in registers (S = ceil((Lt+1)/32), a template).  The
 //   diagonal input at a strip's left edge comes from the neighbour thread
@@ -26,25 +29,31 @@
 //   max inside the strip plus a 5-step warp exclusive prefix-max of the
 //   strip maxima as the carry (the TPU kernel's log-step shift-max scan,
 //   run over 32 strips instead of TW sublanes).
-// * K4: one warp per lane, columns interleaved: column j lives in thread
-//   j % 32, register slot j / 32.  Each 32-column block's E prefix-max is
-//   a 5-step __shfl_up_sync scan (K4's within-32 scan) and the carry from
-//   block to block is a serial running max over the slots (K4's small
-//   carry array), so a row is one pass over the slots.
-// * K5: one thread per NCH lanes (a template, 2 or 3).  The thread sweeps
-//   its lanes' rows left to right in one loop, the lanes' dependent
-//   chains interleaved so they overlap (K5's interleaved chains become
-//   instruction-level parallelism); E is K1's serial running max.  Row
-//   state is a wrapper-allocated scratch area in device memory,
-//   thread-interleaved so a warp's accesses coalesce (served from L1/L2).
+// * K4 and K5: a pipelined-row wavefront (pipe_rect below).  A lane gets
+//   a segment of P threads, each owning a contiguous strip of S columns
+//   in registers, and thread t computes row i - t while thread 0
+//   computes row i: the E carry, the left edge's H and the row's running
+//   maxima pass one thread to the right each step by independent
+//   shuffles, so no row pays a warp scan or a warp argmax; the lane's
+//   last live thread sees each row complete, in order, and alone keeps
+//   the best cell, gscore and the z-drop test.  K4 (the TPU kernel's
+//   blocked scan, which kept the whole row in one core's lanes) takes
+//   P = 32, a warp per lane.  K5 (the TPU kernel's NCH independent row
+//   chains interleaved in one core) takes P = 32 / nch: nch lanes side
+//   by side in a warp, with no state outside registers.  Each step
+//   costs one shuffle latency plus S cells of ~11-13 int32 instructions
+//   (Hopper's DPX add-max, __viaddmax_s32, for F, H and E), and a lane
+//   takes its rows + P - 1 steps (+1 for the stop to reach every
+//   thread).
 //
 // Shared semantics (those of the plain version):
 // * row 0: H(0,0) = h0, H(0,j) = h0 - o_del - e_del*j, NEG where < 0;
 // * columns j > tlen are NEG (dead); nothing flows leftwards, so the
 //   live columns never read them;
 // * best cell: highest score, then earliest row, then smallest column
-//   (per thread a strict '>' in row-major order, then a lexicographic
-//   warp reduction); score <= 0 reports (0, 0, 0);
+//   (K3: per thread a strict '>' in row-major order, then a
+//   lexicographic warp reduction; K4/K5: a strict '>' over the row
+//   maxima, which arrive in row order); score <= 0 reports (0, 0, 0);
 // * z-drop (zdrop > 0): the row max over columns >= 1 (clamped at -1)
 //   and its smallest column; a lane stops when it drops more than zdrop
 //   below the best (ksw_extend's gap-corrected test) or when the row
@@ -62,6 +71,7 @@
 namespace {
 
 constexpr int MAX_SLOTS = 32;  // columns per lane <= 32 * 32 = 1024
+constexpr int NEG16 = -16384;  // extend_rect: a gscore at or below is dead
 
 struct Params {
   const int8_t* query;
@@ -180,204 +190,180 @@ __global__ void __launch_bounds__(128) rect_strip_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// K4: warp per lane, interleaved columns, blocked E scan
+// K4 and K5: pipelined-row wavefront
 // ---------------------------------------------------------------------------
 
-template <int S>
-__global__ void __launch_bounds__(128) rect_blocked_kernel(Params p) {
-  const int lane = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int t = threadIdx.x & 31;
-  if (lane >= p.M) return;
-  const int8_t* q = p.query + (size_t)lane * p.Lq;
-  const int8_t* tg = p.target + (size_t)lane * p.Lt;
-  const int ql = p.qlen[lane];
-  const int tl = min(p.tlen[lane], p.Lt);
-  const int h0 = p.h0[lane];
-  const int oe_ins = p.o_ins + p.e_ins;
-  const int left = (t + 31) & 31;
+// One lane on a segment of P consecutive threads of a warp (32 / P
+// segments per warp; threads past the last whole segment idle).  Thread
+// tt of the segment owns the columns [tt*S, tt*S + S) and at step k
+// computes row i = k - tt, so the segment works on P rows at once, each
+// thread one row behind its left neighbour.  H(i-1, .) and F(i-1, .) are
+// the thread's own registers from the step before; the left edge of row
+// i comes from thread tt-1, which finished it one step earlier, by one
+// shuffle per value (none depends on another):
+// * H(i, j0-1), kept for the next step's diagonal input;
+// * E(i, j0), the deletion score entering the strip, carried as
+//   u = E + o_del + e_del so that a cell's H and the next column's E
+//   are one DPX add-max each;
+// * the row's running (max, smallest column) over columns 1..j0-1, and
+//   H(i, 0) (column 0 counts for gscore, not for the row max).
+// The thread that owns column tl (tlast; threads past it hold dead
+// columns only and compute nothing) so sees every row complete, in
+// order, tlast steps after thread 0 started it.  It alone keeps the best
+// cell (from the row maxima, strict '>'), gscore/gtle of row qlen - 1
+// and the z-drop state; when it stops the lane, the cells of later rows
+// that its left neighbours computed meanwhile are dropped, since no
+// other thread accumulates anything.  Its word (stopped or finished)
+// is broadcast with one shuffle and read one step later, so neither
+// the broadcast nor the warp vote waits in the step's dependent chain;
+// the carries are shuffled before the owner's row-end work, which
+// overlaps their latency.
+// the segment's thread that owns column tl (its last live thread): a row
+// of a lane of tlen tl ends there, tlast steps after thread 0 starts it
+__host__ __device__ __forceinline__ int pipe_last(int tl, int P, int S) {
+  const int t = (tl > 0 ? tl : 0) / S;
+  return t < P - 1 ? t : P - 1;
+}
 
-  int H[S], F[S], tc[S];
+template <int P, int S>
+__device__ __forceinline__ void pipe_rect(const Params& p, int lane) {
+  static_assert(P >= 1 && P <= 32 && S >= 1 && S <= 32, "segment shape");
+  const int t = threadIdx.x & 31;
+  const int tt = t % P;
+  const int seg0 = t - tt;
+  const bool ok = seg0 + P <= 32 && lane < p.M;
+  const int lc = ok ? lane : 0;
+  const int ql = ok ? p.qlen[lc] : 0;
+  const int tl = ok ? min(p.tlen[lc], p.Lt) : 0;
+  const int h0 = ok ? p.h0[lc] : 0;
+  const int rows = max(min(ql, p.Lq), 0);
+  const int j0 = tt * S;
+  const int tlast = pipe_last(tl, P, S);
+  const int own = seg0 + tlast;
+  const bool live = ok && tt <= tlast;
+  const int8_t* q = p.query + (size_t)lc * p.Lq;
+  const int8_t* tg = p.target + (size_t)lc * p.Lt;
+  const int oe_ins = p.o_ins + p.e_ins, oe_del = p.o_del + p.e_del;
+  const int u_left = NEG + p.e_del;  // E(i, 0) + o_del + e_del
+  const int src = t > 0 ? t - 1 : 0;
+
+  // H and F of the row last computed; cap: INT_MAX on live columns, NEG
+  // on dead ones (j > tl), which only the reductions read: a dead cell
+  // feeds dead cells alone (below, to the right), so H is not masked
+  int H[S], F[S], tc[S], cap[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    const int j = 32 * s + t;
-    tc[s] = (j >= 1 && j <= p.Lt) ? tg[j - 1] : 4;
+    const int j = j0 + s;
+    tc[s] = (live && j >= 1 && j <= p.Lt) ? tg[j - 1] : 4;
     H[s] = row0(j, h0, tl, p.o_del, p.e_del);
     F[s] = NEG;
+    cap[s] = j <= tl ? INT_MAX : NEG;
   }
-
+  // from the left neighbour: hl = H(i, j0-1) of the row computed next,
+  // hd = H(i-1, j0-1); uin = E(i, j0) + o_del + e_del; (gin, gjin) = max
+  // over columns 1..j0-1 and its smallest column; c0in = H(i, 0)
+  int hl = tt == 0 ? NEG : row0(j0 - 1, h0, tl, p.o_del, p.e_del);
+  int hd = hl;
+  int uin = u_left, gin = INT_MIN, gjin = 0, c0in = NEG;
+  // the owner's state
   int best = 0, bi = 0, bj = 0;
   int zbest = h0, zbi = 0, zbj = 0;
   int gscore = NEG, gtle = 0;
-  const int rows = min(ql, p.Lq);
-  for (int i = 0; i < rows; ++i) {
-    const int qi = q[i];
-    const bool last = i == ql - 1;
-    int prev = NEG;   // thread 0: H(i-1, 32s - 1), from thread 31
-    int carry = NEG;  // max of hnd(j') + e_del*j' over earlier blocks
-    int rowmax = -1, mj = 0, gmx = INT_MIN, gix = 0;
+  bool oend = false;  // owner: stopped by z-drop or past the last row
+  bool done = !ok || rows == 0, heard = false;
+  int qn = live && rows > 0 ? q[0] : 0;
+
+  for (int k = 0;; ++k) {
+    const int i = k - tt;
+    const int qi = qn;
+    if (live && i + 1 >= 0 && i + 1 < rows) qn = q[i + 1];
+    const bool run = !done && live && i >= 0 && i < rows;
+    int uout = uin, gout = gin, gjout = gjin, c0out = c0in;
+    if (run) {
+      const int qx = qi < 4 ? qi : INT_MAX;  // N never matches
+      int diag = hd, u = uin, m = INT_MIN, mi = 0;
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int j = 32 * s + t;
-      const int hp = H[s];
-      // H(i-1, j-1): thread t-1's slot s, or thread 31's slot s-1
-      const int r = __shfl_sync(FULL, hp, left);
-      const int diag = t == 0 ? prev : r;
-      prev = r;
-      const int f = max(hp - oe_ins, F[s] - p.e_ins);
-      const int hnd = j >= 1
-          ? max(diag + subst(tc[s], qi, p.match, p.mismatch), f)
-          : max(f, NEG);
-      F[s] = f;
-      // within-block inclusive prefix max, then exclusive + carry
-      int incl = hnd + p.e_del * j;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(FULL, incl, d);
-        if (t >= d) incl = max(incl, v);
+      for (int s = 0; s < S; ++s) {
+        // f = max(hp - o_ins - e_ins, F - e_ins); hnd = max(diag + sc, f)
+        // (column 0: max(f, NEG)); with u = E + o_del + e_del,
+        // h = max(hnd, E) and the next column's u = max(u - e_del, hnd)
+        const int hp = H[s];
+        const int f = __viaddmax_s32(hp, -oe_ins, F[s] - p.e_ins);
+        int hnd = __viaddmax_s32(
+            diag, tc[s] == qx ? p.match : -p.mismatch, f);
+        if (s == 0 && tt == 0) hnd = max(f, NEG);
+        diag = hp;
+        const int h = __viaddmax_s32(u, -oe_del, hnd);
+        u = __viaddmax_s32(u, -p.e_del, hnd);
+        H[s] = h;
+        F[s] = f;
+        // the strip's max over live columns >= 1, its first slot
+        bool keep;
+        m = __vibmax_s32(m, s == 0 && tt == 0 ? INT_MIN : min(h, cap[s]),
+                         &keep);
+        mi = keep ? mi : s;
       }
-      int excl = __shfl_up_sync(FULL, incl, 1);
-      if (t == 0) excl = NEG;
-      const int E = max(carry, excl) - p.o_del - p.e_del * j;
-      carry = max(carry, __shfl_sync(FULL, incl, 31));
-      int h = max(hnd, E);
-      if (j > tl) h = NEG;
-      H[s] = h;
-      if (j >= 1) {
-        if (h > best) { best = h; bi = i; bj = j; }
-        if (h > rowmax) { rowmax = h; mj = j; }
+      if (m > gin) {
+        gout = m;
+        gjout = j0 + mi;
       }
-      if (last && j <= p.Lt && h > gmx) { gmx = h; gix = j; }
+      uout = u;
+      if (tt == 0) c0out = H[0];
     }
-    if (last) {
-      warp_argmax(gmx, gix);
-      gscore = gmx;
-      gtle = gix;
+    done = done || heard;  // the owner's word from the step before
+    const bool all = __all_sync(FULL, done);
+    hd = hl;
+    hl = __shfl_sync(FULL, H[S - 1], src);
+    uin = __shfl_sync(FULL, uout, src);
+    gin = __shfl_sync(FULL, gout, src);
+    gjin = __shfl_sync(FULL, gjout, src);
+    c0in = __shfl_sync(FULL, c0out, src);
+    if (tt == 0) {
+      hl = NEG;
+      uin = u_left;
+      gin = INT_MIN;
     }
-    if (p.zdrop > 0) {
-      warp_argmax(rowmax, mj);
-      if (zdrop_stop(i, rowmax, mj, zbest, zbi, zbj, p.e_del, p.e_ins,
-                     p.zdrop))
-        break;
+    if (run && tt == tlast && !oend) {
+      // row i is complete here: (rowmax, mj) clamped at -1 as the plain
+      // version's z-drop row max
+      const int rm = gout > -1 ? gout : -1;
+      const int rj = gout > -1 ? gjout : 0;
+      if (rm > best) {
+        best = rm;
+        bi = i;
+        bj = rj;
+      }
+      if (i == ql - 1) {
+        gscore = c0out >= gout ? c0out : gout;
+        gtle = c0out >= gout ? 0 : gjout;
+      }
+      oend = i == rows - 1 ||
+             (p.zdrop > 0 && zdrop_stop(i, rm, rj, zbest, zbi, zbj,
+                                        p.e_del, p.e_ins, p.zdrop));
     }
+    heard = __shfl_sync(FULL, oend, own);
+    if (all) break;
   }
-  warp_finish(p.out, p.M, lane, best, bi, bj, gscore, gtle);
+  if (ok && tt == tlast) {
+    // a row with no live column (tlen < 0) is all dead: the plain
+    // version's rule for it
+    const bool dead = gscore <= NEG16;
+    write_lane(p.out, p.M, lane, best, bi, bj, dead ? NEG : gscore,
+               dead ? 0 : gtle);
+  }
 }
 
-// ---------------------------------------------------------------------------
-// K5: one thread per NCH lanes, interleaved serial sweeps
-// ---------------------------------------------------------------------------
+// K4: one lane per warp (P = 32)
+template <int S>
+__global__ void __launch_bounds__(128) rect_blocked_kernel(Params p) {
+  pipe_rect<32, S>(p, (blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+}
 
-template <int NCH>
-__global__ void __launch_bounds__(128) rect_interleaved_kernel(
-    Params p, int32_t* __restrict__ scratch, int T) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= T) return;
-  const int TW = p.Lt + 1;
-  const int oe_ins = p.o_ins + p.e_ins;
-  // lane c of this thread is tid + c*T; its H row at
-  // scratch[(2c*TW + j)*T + tid], its F row at scratch[((2c+1)*TW + j)*T + tid]
-  int lane[NCH], ql[NCH], tl[NCH], rows[NCH];
-  int best[NCH], bi[NCH], bj[NCH], zbest[NCH], zbi[NCH], zbj[NCH];
-  int gscore[NCH], gtle[NCH];
-  bool live[NCH];
-  int maxrows = 0, jmax = 0;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    lane[c] = tid + c * T;
-    const bool ok = lane[c] < p.M;
-    const int lc = ok ? lane[c] : 0;
-    ql[c] = ok ? p.qlen[lc] : 0;
-    tl[c] = min(p.tlen[lc], p.Lt);
-    rows[c] = ok ? min(ql[c], p.Lq) : 0;
-    const int h0 = p.h0[lc];
-    best[c] = 0; bi[c] = 0; bj[c] = 0;
-    zbest[c] = h0; zbi[c] = 0; zbj[c] = 0;
-    gscore[c] = NEG; gtle[c] = 0;
-    live[c] = rows[c] > 0;
-    maxrows = max(maxrows, rows[c]);
-    jmax = max(jmax, tl[c]);
-    int32_t* Hc = scratch + (size_t)(2 * c) * TW * T + tid;
-    int32_t* Fc = scratch + (size_t)(2 * c + 1) * TW * T + tid;
-    for (int j = 0; j <= p.Lt; ++j) {
-      Hc[(size_t)j * T] = row0(j, h0, tl[c], p.o_del, p.e_del);
-      Fc[(size_t)j * T] = NEG;
-    }
-  }
-  for (int i = 0; i < maxrows; ++i) {
-    bool any = false;
-    int qi[NCH], diag[NCH], run[NCH], rowmax[NCH], mj[NCH], gmx[NCH],
-        gix[NCH];
-    const int8_t* tg[NCH];
-    int32_t* Hc[NCH];
-    int32_t* Fc[NCH];
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      live[c] = live[c] && i < rows[c];
-      any = any || live[c];
-      const int lc = lane[c] < p.M ? lane[c] : 0;
-      qi[c] = live[c] ? p.query[(size_t)lc * p.Lq + i] : 4;
-      tg[c] = p.target + (size_t)lc * p.Lt;
-      Hc[c] = scratch + (size_t)(2 * c) * TW * T + tid;
-      Fc[c] = scratch + (size_t)(2 * c + 1) * TW * T + tid;
-      diag[c] = NEG;
-      run[c] = NEG;
-      rowmax[c] = -1; mj[c] = 0;
-      gmx[c] = INT_MIN; gix[c] = 0;
-    }
-    if (!any) break;
-    // a lane that is no longer live keeps sweeping (its state is never
-    // read again); only its outputs are guarded
-    for (int j = 0; j <= jmax; ++j) {
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        const size_t a = (size_t)j * T;
-        const int hp = Hc[c][a];
-        const int f = max(hp - oe_ins, Fc[c][a] - p.e_ins);
-        const int hnd = j >= 1
-            ? max(diag[c] + subst(tg[c][j - 1], qi[c], p.match,
-                                  p.mismatch), f)
-            : max(f, NEG);
-        diag[c] = hp;
-        const int E = run[c] - p.o_del - p.e_del * j;
-        run[c] = max(run[c], hnd + p.e_del * j);
-        int h = max(hnd, E);
-        if (j > tl[c]) h = NEG;
-        Hc[c][a] = h;
-        Fc[c][a] = f;
-        if (live[c]) {
-          if (j >= 1) {
-            if (h > best[c]) { best[c] = h; bi[c] = i; bj[c] = j; }
-            if (h > rowmax[c]) { rowmax[c] = h; mj[c] = j; }
-          }
-          if (h > gmx[c]) { gmx[c] = h; gix[c] = j; }
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      if (!live[c]) continue;
-      if (i == ql[c] - 1) {
-        // columns (jmax, Lt] are NEG and never the smallest argmax
-        // unless the whole row is NEG, where column 0 wins anyway
-        gscore[c] = gmx[c];
-        gtle[c] = gix[c];
-      }
-      if (p.zdrop > 0 &&
-          zdrop_stop(i, rowmax[c], mj[c], zbest[c], zbi[c], zbj[c],
-                     p.e_del, p.e_ins, p.zdrop))
-        live[c] = false;
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    if (lane[c] >= p.M) continue;
-    const bool found = best[c] > 0;
-    p.out[lane[c]] = found ? best[c] : 0;
-    p.out[p.M + lane[c]] = found ? bi[c] + 1 : 0;
-    p.out[2 * p.M + lane[c]] = found ? bj[c] : 0;
-    p.out[3 * p.M + lane[c]] = gscore[c];
-    p.out[4 * p.M + lane[c]] = gtle[c];
-  }
+// K5: 32 / P lanes per warp, side by side (P = 32 / nch)
+template <int P, int S>
+__global__ void __launch_bounds__(128) rect_interleaved_kernel(Params p) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  pipe_rect<P, S>(p, warp * (32 / P) + (threadIdx.x & 31) / P);
 }
 
 Params make_params(const void* query, const void* qlen, const void* target,
@@ -397,17 +383,48 @@ Params make_params(const void* query, const void* qlen, const void* target,
   return p;
 }
 
-// register slots per thread for Lt + 1 columns: 4, 8, 16 or 32
-int slots_for(int Lt) {
-  const int need = (Lt + 1 + 31) / 32;
+// register slots per thread for Lt + 1 columns over P threads: the
+// smallest of 4, 8, 16, 32 with P * S >= Lt + 1, or 0 if none is
+int slots_for(int Lt, int P = 32) {
   int s = 4;
-  while (s < need) s *= 2;
-  return s;
+  while (s < 32 && s * P < Lt + 1) s *= 2;
+  return s * P >= Lt + 1 ? s : 0;
+}
+
+// the pipelined kernels' segment shape for targets of Lt columns: P
+// threads a lane (K4, nch = 1: 32; K5: 32 / nch, widened to 16, then 32,
+// threads while Lt + 1 columns do not fit in P threads of 32 slots) and
+// S slots a thread
+void pipe_shape(int Lt, int nch, int& P, int& S) {
+  P = 32 / nch;
+  while (slots_for(Lt, P) == 0) P = P < 16 ? 16 : 32;
+  S = slots_for(Lt, P);
+}
+
+template <int P>
+void launch_interleaved(int S, int blocks, cudaStream_t st, const Params& p) {
+  switch (S) {
+    case 4: rect_interleaved_kernel<P, 4><<<blocks, 128, 0, st>>>(p); break;
+    case 8: rect_interleaved_kernel<P, 8><<<blocks, 128, 0, st>>>(p); break;
+    case 16: rect_interleaved_kernel<P, 16><<<blocks, 128, 0, st>>>(p); break;
+    default: rect_interleaved_kernel<P, 32><<<blocks, 128, 0, st>>>(p); break;
+  }
 }
 
 }  // namespace
 
 extern "C" int sw_rect_max_width() { return 32 * MAX_SLOTS - 1; }
+
+// K4 (nch = 1) and K5 (nch 2, 3) on targets of Lt columns: the index of
+// the thread of its segment where a lane of tlen tl ends each row, so the
+// lane takes its rows + that many steps of the pipeline; -1 for a shape
+// the launchers refuse
+extern "C" int sw_rect_pipe_last(int Lt, int nch, int tl) {
+  if (nch < 1 || nch > 3 || Lt < 0 || Lt > 32 * MAX_SLOTS - 1) return -1;
+  int P, S;
+  pipe_shape(Lt, nch, P, S);
+  return pipe_last(tl < Lt ? tl : Lt, P, S);
+}
 
 // out: int32 [5, M] = score, qle, tle, gscore, gtle.  Lt <= 1023.
 extern "C" int sw_extend_rect(const void* query, const void* qlen,
@@ -446,7 +463,9 @@ extern "C" int sw_extend_rect_blocked(const void* query, const void* qlen,
     const int threads = 128;
     const int blocks = (int)(((long long)M * 32 + threads - 1) / threads);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (slots_for(Lt)) {
+    int P, S;
+    pipe_shape(Lt, 1, P, S);
+    switch (S) {
       case 4: rect_blocked_kernel<4><<<blocks, threads, 0, st>>>(p); break;
       case 8: rect_blocked_kernel<8><<<blocks, threads, 0, st>>>(p); break;
       case 16: rect_blocked_kernel<16><<<blocks, threads, 0, st>>>(p); break;
@@ -456,26 +475,30 @@ extern "C" int sw_extend_rect_blocked(const void* query, const void* qlen,
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: int32 [nch * 2 * (Lt + 1) * ceil(M / nch)]; nch in {2, 3}.
+// nch in {2, 3}: lanes side by side in a warp, P = 32 / nch threads each;
+// a target too wide for P threads of 32 slots takes 16, then 32, threads
+// a lane (fewer lanes a warp), so every Lt <= 1023 runs.
 extern "C" int sw_extend_rect_interleaved(
     const void* query, const void* qlen, const void* target,
-    const void* tlen, const void* h0, void* out, void* scratch, int M,
-    int Lq, int Lt, int nch, int o_del, int e_del, int o_ins, int e_ins,
-    int match, int mismatch, int zdrop, void* stream) {
+    const void* tlen, const void* h0, void* out, int M, int Lq, int Lt,
+    int nch, int o_del, int e_del, int o_ins, int e_ins, int match,
+    int mismatch, int zdrop, void* stream) {
   if (nch != 2 && nch != 3) return static_cast<int>(cudaErrorInvalidValue);
   if (M > 0) {
     const Params p = make_params(query, qlen, target, tlen, h0, out, M, Lq,
                                  Lt, o_del, e_del, o_ins, e_ins, match,
                                  mismatch, zdrop);
-    const int T = (M + nch - 1) / nch;
-    const int threads = 128;
-    const int blocks = (T + threads - 1) / threads;
+    int P, S;
+    pipe_shape(Lt, nch, P, S);
+    const long long warps = (M + 32 / P - 1) / (32 / P);
+    const int blocks = (int)((warps * 32 + 127) / 128);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    int32_t* sc = static_cast<int32_t*>(scratch);
-    if (nch == 2)
-      rect_interleaved_kernel<2><<<blocks, threads, 0, st>>>(p, sc, T);
+    if (P == 10)
+      launch_interleaved<10>(S, blocks, st, p);
+    else if (P == 16)
+      launch_interleaved<16>(S, blocks, st, p);
     else
-      rect_interleaved_kernel<3><<<blocks, threads, 0, st>>>(p, sc, T);
+      rect_interleaved_kernel<32, 32><<<blocks, 128, 0, st>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
-// Warp-level pieces shared by the warp-per-lane extension kernels
-// (K1 in sw_extend.cu, K3/K4 in sw_rect.cu): one warp computes one
-// extension lane, and these reduce its per-thread results.
+// Warp-level pieces shared by the extension kernels (K1 in
+// sw_extend.cu, K3-K5 in sw_rect.cu): they reduce a lane's per-thread
+// results and write its five outputs.
 
 #pragma once
 
@@ -26,9 +26,21 @@ __device__ __forceinline__ void warp_argmax(int& v, int& idx) {
   }
 }
 
-// the lane's epilogue: reduce the per-thread best cells (highest score,
-// then earliest row, then smallest column) and write the five outputs
-// of out int32 [5, M]
+// one lane's five outputs of out int32 [5, M] from its best cell (score,
+// row, column), gscore and gtle
+__device__ __forceinline__ void write_lane(int32_t* __restrict__ out, int M,
+                                           int lane, int best, int bi,
+                                           int bj, int gscore, int gtle) {
+  const bool found = best > 0;
+  out[lane] = found ? best : 0;
+  out[M + lane] = found ? bi + 1 : 0;
+  out[2 * M + lane] = found ? bj : 0;
+  out[3 * M + lane] = gscore;
+  out[4 * M + lane] = gtle;
+}
+
+// the warp-per-lane epilogue: reduce the per-thread best cells (highest
+// score, then earliest row, then smallest column) and write the outputs
 __device__ __forceinline__ void warp_finish(int32_t* __restrict__ out,
                                             int M, int lane, int best,
                                             int bi, int bj, int gscore,
@@ -44,18 +56,13 @@ __device__ __forceinline__ void warp_finish(int32_t* __restrict__ out,
       bj = oj;
     }
   }
-  if ((threadIdx.x & 31) == 0) {
-    const bool found = best > 0;
-    out[lane] = found ? best : 0;
-    out[M + lane] = found ? bi + 1 : 0;
-    out[2 * M + lane] = found ? bj : 0;
-    out[3 * M + lane] = gscore;
-    out[4 * M + lane] = gtle;
-  }
+  if ((threadIdx.x & 31) == 0)
+    write_lane(out, M, lane, best, bi, bj, gscore, gtle);
 }
 
-// z-drop decision for one computed row (identical on every thread of the
-// warp once the row max has been reduced)
+// z-drop decision for one computed row (K1/K3: identical on every thread
+// of the warp once the row max has been reduced; K4/K5: on the lane's
+// last thread)
 __device__ __forceinline__ bool zdrop_stop(int i, int m, int mj, int& zbest,
                                            int& zbi, int& zbj, int e_del,
                                            int e_ins, int zdrop) {

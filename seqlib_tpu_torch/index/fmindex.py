@@ -54,9 +54,11 @@ class FMIndex:
 
     @classmethod
     def construct(cls, seqs) -> "FMIndex":
-        """Build from [(name, seq)] pairs."""
+        """Build from [(name, seq)] pairs or objects with ``.name`` and
+        ``.seq`` (``UnalignedSequence``, what ``FastqReader`` yields)."""
         idx = cls()
-        idx.ref = pack_sequences([(s[0], s[1]) for s in seqs])
+        idx.ref = pack_sequences([(s.name, s.seq) if hasattr(s, "name")
+                                  else (s[0], s[1]) for s in seqs])
         text = both_strands(idx.ref.codes)
         n = text.size
         idx.seq_len = n

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,8 +43,9 @@ SIGNATURES = {
     "sw_rect": {
         "sw_extend_rect": [_VP] * 6 + [_CI] * 10 + [_VP],
         "sw_extend_rect_blocked": [_VP] * 6 + [_CI] * 10 + [_VP],
-        "sw_extend_rect_interleaved": [_VP] * 7 + [_CI] * 11 + [_VP],
+        "sw_extend_rect_interleaved": [_VP] * 6 + [_CI] * 11 + [_VP],
         "sw_rect_max_width": [],
+        "sw_rect_pipe_last": [_CI] * 3,
     },
 }
 LIBRARIES = tuple(SIGNATURES)
@@ -108,6 +110,43 @@ def build_all() -> dict[str, str]:
     jobs = {n: _start_build(n) for n in LIBRARIES}
     return {n: _finish_build(n, job) if job is not None else ""
             for n, job in jobs.items()}
+
+
+def kernel_name(mangled: str) -> str:
+    """kernel or kernel<S, ...> from an Itanium-mangled entry name: the
+    last <length><identifier> of its (nested) name, then its int and bool
+    template arguments if it has any."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while (m := re.match(r"\d+", mangled[pos:])):
+        pos += m.end()
+        name = mangled[pos:pos + int(m.group())]
+        pos += len(name)
+    tm = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    args = re.findall(r"L[ib](\d+)E", tm.group(1)) if tm else []
+    return name + (f"<{', '.join(args)}>" if args else "")
+
+
+def ptxas_report(text: str) -> list[tuple[str, int, int, int, int]]:
+    """(kernel, registers, stack-frame bytes, spill-store bytes,
+    spill-load bytes) per entry function of nvcc's ``-Xptxas -v``
+    output; a template instance is named kernel<S>."""
+    out, name, spill = [], None, (0, 0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            spill = (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            spill = tuple(int(g) for g in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -194,11 +194,8 @@ def launch_rect(entry: str, query, qlen, target, tlen, h0,
     tail = [ci(o_del), ci(e_del), ci(o_ins), ci(e_ins), ci(match),
             ci(mismatch), ci(zdrop), cuda_lib.stream_ptr(dev)]
     if nch:
-        T = -(-M // nch)
-        scratch = torch.empty(nch * 2 * (Lt + 1) * max(T, 1),
-                              dtype=torch.int32, device=dev)
-        rc = getattr(lib, entry)(*ptrs, vp(scratch.data_ptr()), ci(M),
-                                 ci(Lq), ci(Lt), ci(nch), *tail)
+        rc = getattr(lib, entry)(*ptrs, ci(M), ci(Lq), ci(Lt), ci(nch),
+                                 *tail)
     else:
         rc = getattr(lib, entry)(*ptrs, ci(M), ci(Lq), ci(Lt), *tail)
     cuda_lib.check(rc, entry)

@@ -5,11 +5,12 @@
 Both compute ``ops.sw.extend_rect`` (full-rectangle ``ksw_extend``), the
 function of kernel K3, in other Hopper layouts (``csrc/sw_rect.cu``):
 
-* ``extend_v3`` -> K4, one warp per lane with interleaved columns and a
-  blocked E scan (5-step shuffle scan inside each 32-column block, a
-  serial carry between blocks);
-* ``extend_v4`` -> K5, one thread per ``nch`` lanes (2 or 3) whose
-  serial row sweeps are interleaved.
+* ``extend_v3`` -> K4, a pipelined-row wavefront on a warp per lane:
+  thread t owns a strip of columns and computes row i - t while thread
+  0 computes row i, the E carry and the row maxima passing one thread
+  to the right each step;
+* ``extend_v4`` -> K5, the same wavefront on 32 // ``nch`` threads per
+  lane (``nch`` 2 or 3), so a warp carries ``nch`` lanes side by side.
 
 On CPU tensors each runs the plain version ``ops.sw.extend_rect``; on
 CUDA tensors it launches its kernel or raises.  ``extend_v4`` takes

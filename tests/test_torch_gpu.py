@@ -19,8 +19,9 @@ import torch
 from seqlib_tpu_torch.align import BWAAligner
 from seqlib_tpu_torch.align.pairing import align_pairs
 from seqlib_tpu_torch.assembly import BFC, FermiAssembler
-from seqlib_tpu_torch.bench_sw import (RECT_KERNELS, k1_edge_inputs,
-                                       k1_long_inputs)
+from seqlib_tpu_torch.bench_sw import (RECT_KERNELS, STOP_WIDTHS,
+                                       STOP_ZDROPS, k1_edge_inputs,
+                                       k1_long_inputs, rect_stop_inputs)
 from seqlib_tpu_torch.index import FMIndex
 from seqlib_tpu_torch.core.unaligned import UnalignedSequence
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, kmer, sw_cuda
@@ -226,10 +227,22 @@ def test_aligner_gpu_equals_cpu(cuda, genome):
 @pytest.mark.parametrize("kernel,variant,Lt,zdrop", [
     ("K3", "", 60, 0), ("K3", "", 250, 100), ("K3", "", 1000, 100),
     ("K4", "", 60, 0), ("K4", "", 250, 100), ("K4", "", 700, 0),
-    ("K5", "nch=2", 250, 100), ("K5", "nch=3", 60, 100)])
+    ("K5", "nch=2", 250, 100), ("K5", "nch=3", 60, 100)]
+    # the stop-row lanes (bench_sw.rect_stop_inputs: stops on rows 0, 1,
+    # P - 2 .. P and 2P of each pipeline depth and on the last row, ties,
+    # empty and oversized lanes), 64 lanes, or 61 (not a multiple of nch)
+    + [("K4", "|stop", Lt, zd) for Lt in STOP_WIDTHS
+       for zd in (0,) + STOP_ZDROPS + (100,)]
+    + [("K5", f"nch={n}|stop", Lt, zd) for n in (2, 3) for Lt in STOP_WIDTHS
+       for zd in STOP_ZDROPS + (100,)]
+    + [("K5", f"nch={n}|stop61", 250, 100) for n in (2, 3)])
 def test_rect_kernels_equal_plain(cuda, kernel, variant, Lt, zdrop):
     k = RECT_KERNELS[kernel]
-    args = _lanes(Lt + zdrop, 300, min(150, Lt), Lt, cuda)
+    variant, _, inputs = variant.partition("|")
+    if inputs:
+        args = rect_stop_inputs(cuda, M=int(inputs[4:] or 64), Lt=Lt)
+    else:
+        args = _lanes(Lt + zdrop, 300, min(150, Lt), Lt, cuda)
     n0 = cuda_lib.LAUNCHES[k.counter]
     got = k.fns[variant](*args, zdrop=zdrop)
     assert cuda_lib.LAUNCHES[k.counter] == n0 + 1

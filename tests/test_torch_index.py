@@ -82,3 +82,37 @@ def test_from_arrays_rejects_inconsistent_shapes(pair):
                   for a in ji.ref.anns],
             bwt_words=ji.bwt_words, cp_counts=ji.cp_counts, L2=ji.L2,
             primary=ji.primary, sa_full=ji.sa_full)
+
+
+def _assert_same_index(ji, ti):
+    for k in ARRAYS:
+        assert np.array_equal(np.asarray(getattr(ji, k)).astype(np.int64),
+                              np.asarray(getattr(ti, k)).astype(np.int64)), k
+    assert ji.primary == ti.primary and ji.seq_len == ti.seq_len
+    assert [(a.name, a.offset, a.length, a.n_amb) for a in ji.ref.anns] == \
+        [(a.name, a.offset, a.length, a.n_amb) for a in ti.ref.anns]
+
+
+def test_construct_from_unaligned_sequences():
+    """``construct`` takes the port's ``UnalignedSequence`` objects, as
+    the JAX package's takes its own, and builds the same index as from
+    (name, seq) pairs."""
+    from seqlib_tpu_torch.core.unaligned import UnalignedSequence
+    seqs = _multi_contig_with_n()
+    ti = FMIndex.construct([UnalignedSequence(n, s) for n, s in seqs])
+    _assert_same_index(JaxFMIndex.construct(seqs), ti)
+
+
+def test_construct_from_fasta_reader(tmp_path):
+    """``FMIndex.construct(list(FastqReader(fasta)))`` over a 3-contig
+    FASTA (how an index is built from a reference file) equals the JAX
+    package's index of the same (name, seq) pairs."""
+    from seqlib_tpu_torch.io import FastqReader
+    seqs = _multi_contig_with_n()
+    fa = tmp_path / "ref.fa"
+    fa.write_text("".join(f">{n} contig {k}\n" + "\n".join(
+        s[p:p + 70] for p in range(0, len(s), 70)) + "\n"
+        for k, (n, s) in enumerate(seqs)))
+    recs = list(FastqReader(str(fa)))
+    assert [(r.name, r.seq) for r in recs] == seqs
+    _assert_same_index(JaxFMIndex.construct(seqs), FMIndex.construct(recs))

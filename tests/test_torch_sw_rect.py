@@ -10,6 +10,15 @@ with importlib, each call in a fresh ``force_tpu_interpret_mode``).
 Tolerance 0 on every output, with one stated rule: a gscore at or below
 -16000 is "dead" (the last query row was never computed) and two dead
 gscores compare equal, as tests/test_ops.py holds K3 to extend_batch.
+
+The stop-row lanes (``bench_sw.rect_stop_inputs``: z-drop stops on rows
+0, 1, P - 2 .. P and 2P of each pipeline depth P of K4 and K5 and on the
+last row, ties, empty and oversized lanes) run each TPU kernel once, at
+zdrop 0, 7, 100 and 10^6 between them.  One reference fact is kept
+apart: the JAX TPU kernels pad the query with N rows to a multiple of
+16 and, at zdrop 0, compute a lane with qlen > Lq on those rows, where
+the JAX package's ``extend_batch`` (and the port) report its last row
+dead; such lanes are held to ``extend_batch``.
 """
 
 import importlib.util
@@ -22,7 +31,9 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from seqlib_tpu.ops.sw import extend_batch as jax_extend_batch
 from seqlib_tpu.ops.sw_pallas import extend_batch_pallas
+from seqlib_tpu_torch.bench_sw import STOP_ROWS, rect_stop_inputs
 from seqlib_tpu_torch.ops import sw_cuda, sw_variants
 from seqlib_tpu_torch.ops.sw import RECT_MAX_LT, extend_rect
 
@@ -82,6 +93,14 @@ def lanes():
     return q, ql, t, tl, h0
 
 
+@pytest.fixture(scope="module")
+def stop_lanes():
+    """The stop-row lanes at 64 lanes, Lq 72 (stops up to row 2 * 32 and
+    on row 71), Lt 60."""
+    return tuple(a.numpy() for a in rect_stop_inputs(
+        torch.device("cpu"), M=64, Lq=72, Lt=LT))
+
+
 def _jax(fn, lanes, **kw):
     with pltpu.force_tpu_interpret_mode():
         out = fn(*(jnp.asarray(a) for a in lanes), **kw)
@@ -101,8 +120,13 @@ def _assert_equal(got: dict, want: dict):
 
 @pytest.mark.parametrize("kernel,zdrop", [
     ("K3", 0), ("K3", 100), ("K4", 0), ("K4", 100), ("K5/2", 100),
-    ("K5/3", 100)])
-def test_rect_equals_jax_kernel(sweep, lanes, kernel, zdrop):
+    ("K5/3", 100),
+    ("K3@stop", 0), ("K4@stop", 7), ("K5/2@stop", 100),
+    ("K5/3@stop", 10**6)])
+def test_rect_equals_jax_kernel(sweep, lanes, stop_lanes, kernel, zdrop):
+    kernel, _, inputs = kernel.partition("@")
+    if inputs:
+        lanes = stop_lanes
     t = [torch.from_numpy(a) for a in lanes]
     if kernel == "K3":
         got = sw_cuda.extend_batch_rect(*t, zdrop=zdrop)
@@ -115,6 +139,21 @@ def test_rect_equals_jax_kernel(sweep, lanes, kernel, zdrop):
         nch = int(kernel[-1])
         got = sw_variants.extend_v4(*t, nch=nch, zdrop=zdrop)
         want = _jax(sweep.extend_v4, lanes, NCH=nch, zdrop=zdrop)
+    if inputs:
+        past = lanes[1] > lanes[0].shape[1]
+        assert past.sum() >= 2
+        if zdrop == 0:
+            # the TPU kernel computes some of them on its N padding
+            assert (want["gscore"][past] > DEAD).any()
+            ref = {k: np.asarray(v) for k, v in jax_extend_batch(
+                *(jnp.asarray(a) for a in lanes), zdrop=0).items()}
+            for k in KEYS:
+                want[k] = np.where(past, ref[k], want[k])
+        _assert_equal(got, want)
+        rows = extend_rect(*t, zdrop=zdrop, return_rows=True)["rows"]
+        if zdrop > 0:
+            assert set(STOP_ROWS) | {71} <= set((rows - 1).tolist())
+        return
     _assert_equal(got, want)
     assert (got["score"] > 0).sum() > B // 4
     assert (got["gscore"] <= DEAD).sum() > 0
