@@ -80,18 +80,19 @@ last line is printed):
    ``before + 0.5 (n - before)`` and 90%; corrected reads/s and
    bases/s, stage times, unique k-mers, kcov, min_cov, peak memory, and
    one traced walk;
-14. rectangle kernels K3, K4, K5 (``bench_sw.run``): each held against
-   its plain version on the card, tolerance 0, on bench.py's inputs, the
-   variant sweep's and a set of short and empty lanes, at zdrop 0 and
-   100 (K5: 100 only), and on the stop-row lanes
+14. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
+   probe line (clocks a scheduler per warp instruction of the s16x2 and
+   int32 add-max, PRMT, and the s16x2 forms' edge semantics); then each
+   kernel held against its plain version on the card, tolerance 0, on
+   bench.py's inputs, the variant sweep's and a set of short and empty
+   lanes, at zdrop 0 and 100 (K5: 100 only), and on the stop-row lanes
    (``bench_sw.rect_stop_inputs``: z-drop stops on rows 0, 1, P - 2 ..
    P and 2P of each pipeline depth P of K4 and K5, ties, empty and
    oversized lanes) at Lt 31, 60, 250 and 1023, zdrop also 7 and 10^6;
    then timed on the extension bench path (device time per launch and
    per-call wrapper time, as for K1 and K2, beside the earlier layouts'
-   times (PERF.md run P4-C), and
-   each variant's longest lane alone: rows, pipeline steps, ns a step),
-   whose launches they report;
+   times (PERF.md), and each variant's longest lane alone: rows,
+   pipeline steps, ns a step), whose launches they report;
 15. one JSON line of all five kernels' numbers, each with its launches
    on each path it has (``by_path``: K1 and K2 main, overflow, long,
    paired; K3-K5 bench; all five assembly, where no TPU-kernel

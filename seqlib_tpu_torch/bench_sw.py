@@ -10,9 +10,12 @@ Inputs, made from seed 0 with numpy:
   full lengths, h0 = 30;
 * ``sweep``: the sweep's codes 0-4, qlen 100-150, tlen 150-250,
   h0 10-150;
-* ``edges``: short, empty (qlen 0 or tlen 0) and near-identical lanes.
+* ``edges``: short, empty (qlen 0 or tlen 0) and near-identical lanes;
+* the stop-row lanes (``rect_stop_inputs``) at Lt 31, 60, 250, 1023.
 
-Each kernel is first held against its plain version
+First a probe of the DPX instructions (``dpx_probe``: clocks per warp
+instruction of the s16x2 and int32 add-max and PRMT, the s16x2 forms'
+edge semantics).  Each kernel is then held against its plain version
 (``ops.sw.extend_rect``; ``extend_batch(band=100)`` for K1) on every
 set, at zdrop 0 and 100 (K5 at 100 only), tolerance 0.  Then, at
 zdrop = 100 on the bench set, it is timed: device time per launch over
@@ -26,13 +29,13 @@ them).  K1 and K3 are also compared per DP
 cell the inputs need, device time on both sides.  Launches of the
 checks are not counted; ``run`` returns each kernel's full-batch
 launches of the timed part.  Each pipelined kernel's longest lane is
-also timed alone (its rows, pipeline steps and ns a step), in one-lane
-launches that are not counted.  Every line names the card and its power
-limit.
+also timed alone (its rows, pipeline steps and ns a step), in launches
+that are not counted.  Every line names the card and its power limit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import subprocess
 import sys
@@ -73,10 +76,23 @@ STOP_WIDTHS = (31, 60, 250, 1023)
 STOP_ZDROPS = (7, 10**6)
 
 
-def pipe_last(nch: int, Lt: int, tl: int) -> int:
+def k3_segment(M: int, Lq: int, Lt: int) -> tuple[int, int]:
+    """The segment K3's launcher gives M lanes of Lq x Lt: (threads a
+    segment, slots a thread)."""
+    v = cuda_lib.load("sw_rect").sw_rect_k3_shape(M, Lq, Lt)
+    if v < 0:
+        raise ValueError(f"sw_rect_k3_shape: no shape for Lt={Lt}")
+    return v // 64, v % 64
+
+
+def pipe_last(nch: int, Lt: int, tl: int, M: int = 1, Lq: int = 0) -> int:
     """For step counts: the thread of its segment where a lane of tlen
-    tl ends each row, in K4 (nch = 1) or K5 (nch 2, 3) on targets of Lt
+    tl ends each row, in K3 (nch 0, on the segment its launcher gives M
+    lanes of Lq x Lt), K4 (nch = 1) or K5 (nch 2, 3) on targets of Lt
     columns, as csrc/sw_rect.cu's launchers shape the pipeline."""
+    if nch <= 0:
+        P, S = k3_segment(M, Lq, Lt)
+        return min(max(min(tl, Lt), 0) // S, P - 1)
     last = cuda_lib.load("sw_rect").sw_rect_pipe_last(Lt, nch, tl)
     if last < 0:
         raise ValueError(f"sw_rect_pipe_last: no pipeline for Lt={Lt}, "
@@ -84,17 +100,68 @@ def pipe_last(nch: int, Lt: int, tl: int) -> int:
     return last
 
 
+# the probe's operations (csrc/dpx_probe.cu), in its order
+PROBE_OPS = ("viaddmax_s16x2", "viaddmax_s32", "vibmax_s16x2+selects",
+             "prmt")
+
+
+def dpx_probe(dev, iters: int = 4096) -> dict:
+    """Clocks a scheduler takes per warp instruction of each PROBE_OPS
+    operation: at throughput (8 independent chains a thread, 4 warps on
+    each scheduler, one block an SM) and along one dependent chain (one
+    warp a scheduler); and the s16x2 forms' edge semantics."""
+    lib = cuda_lib.load("dpx_probe")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = cuda_lib.stream_ptr(dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    out = {}
+    for op, name in enumerate(PROBE_OPS):
+        res = {}
+        for label, ch, warps in (("throughput", 8, 4), ("latency", 1, 1)):
+            threads = 4 * 32 * warps
+            clk = torch.zeros(sms * threads // 32, dtype=torch.int64,
+                              device=dev)
+            for _ in range(2):              # the first launch warms up
+                cuda_lib.check(lib.dpx_probe(
+                    vp(clk.data_ptr()), vp(sink.data_ptr()), ci(op),
+                    ci(ch), ci(sms), ci(threads), ci(iters), stream),
+                    "dpx_probe")
+            torch.cuda.synchronize()
+            res[label] = float(clk.double().mean()) / (iters * ch * warps)
+        out[name] = res
+    sem = torch.zeros(8, dtype=torch.int32, device=dev)
+    cuda_lib.check(lib.dpx_semantics(vp(sem.data_ptr()), stream),
+                   "dpx_semantics")
+    v = [int(x) & 0xffffffff for x in sem.cpu()]
+    out["semantics"] = dict(
+        add_wraps=(v[0] >> 16) == 0xfffb and v[6] == 0x7fff7fff,
+        add_saturates=(v[0] >> 16) == 0x7fff and v[6] == 0x80008000,
+        # __vibmax_s16x2(a, b, &pred_hi, &pred_lo): max per half, and
+        # a >= b per half as declared (a = (5, 1), b = (3, 2) sets pred_hi
+        # only; equal halves and a = (1, 1), b = (0, 0) set both).  The
+        # toolkit's inline asm reads a after writing the max to an output
+        # that may share its register (no early clobber), so the
+        # predicates can differ from build to build; K3 does not use them
+        vibmax_max=v[1] == 0x00050002,
+        vibmax_preds_as_declared=v[2] == 2 and v[3] == 3 and v[7] == 3,
+        vmaxs2_ok=v[4] == 0x7fff0005,
+        prmt_sign=v[5] == 0x0001fffc,
+        raw=[f"{x:08x}" for x in v])
+    return out
+
+
 class RectKernel(NamedTuple):
     counter: str        # its launch counter (and C entry point)
     replaces: str       # the TPU kernel it replaces
     zdrops: tuple       # the zdrops it is checked at
     fns: dict           # its wrappers, by label
-    nch: dict           # per label: pipe_last's nch, or None (row order)
+    nch: dict           # per label: pipe_last's nch (K3: 0)
 
 
 RECT_KERNELS = {
     "K3": RectKernel("sw_extend_rect", "seqlib_tpu/ops/sw_pallas.py:55",
-                     (0, ZDROP), {"": extend_batch_rect}, {"": None}),
+                     (0, ZDROP), {"": extend_batch_rect}, {"": 0}),
     "K4": RectKernel("sw_extend_rect_blocked",
                      "scripts/sw_variant_sweep.py:21", (0, ZDROP),
                      {"": extend_v3}, {"": 1}),
@@ -104,11 +171,11 @@ RECT_KERNELS = {
                       "nch=3": functools.partial(extend_v4, nch=3)},
                      {"nch=2": 2, "nch=3": 3}),
 }
-# device ms per launch on these inputs of the earlier layouts (K4 a
-# blocked warp scan, K5 a thread per nch lanes with its rows in device
-# memory) and the chip run each was read in (PERF.md), H100 80GB HBM3,
-# 700 W
-EARLIER_MS = {("K3", ""): ("P4-C", 0.0302), ("K4", ""): ("P4-C", 0.0569),
+# device ms per launch on these inputs of the earlier layouts (K3 a warp
+# per lane in row order, K4 a blocked warp scan, K5 a thread per nch
+# lanes with its rows in device memory) and the chip run each was read
+# in (PERF.md), H100 80GB HBM3, 700 W
+EARLIER_MS = {("K3", ""): ("P6-D", 0.0312), ("K4", ""): ("P4-C", 0.0569),
               ("K5", "nch=2"): ("P4-C", 4.3148),
               ("K5", "nch=3"): ("P4-B", 6.70)}
 SOURCE = "seqlib_tpu_torch/csrc/sw_rect.cu"
@@ -456,21 +523,30 @@ def chained_ms(fn, args) -> float:
 
 
 def longest_lane(fn, args, rows, nch) -> dict:
-    """The lane with the most rows (from the plain version), alone on the
+    """The lane with the most rows (from the plain version) alone on the
     card, and an empty lane (qlen 0) alone, the launch's floor: device
     ms of each, the lane's rows and the steps its dependent chain takes
-    (rows, or for the pipelined kernels rows + the segment's last live
-    thread + 1: its pipeline fill and the stop's broadcast), and ns a
-    step net of the floor."""
+    (rows + the segment's last live thread + 1: its pipeline fill and the
+    stop's broadcast), and ns a step net of the floor.  K3 (nch <= 0),
+    whose segment shape depends on the batch, runs it in a batch of the
+    call's lanes with every other lane empty, and its floor is a batch of
+    empty lanes; K4 and K5 run one-lane launches."""
     m = int(torch.argmax(rows))
-    one = [a[m:m + 1] for a in args]
+    M, Lq = args[0].shape
+    Lt = args[2].shape[1]
+    if nch <= 0:
+        one = [a.clone() for a in args]
+        keep = torch.zeros(M, dtype=torch.bool, device=one[1].device)
+        keep[m] = True
+        one[1] = torch.where(keep, one[1], torch.zeros_like(one[1]))
+    else:
+        one = [a[m:m + 1] for a in args]
     empty = [a.clone() for a in one]
     empty[1].zero_()
     ms = device_ms(lambda: fn(*one, zdrop=ZDROP), 10)
     ms0 = device_ms(lambda: fn(*empty, zdrop=ZDROP), 10)
     n = int(rows[m])
-    steps = n if nch is None else n + pipe_last(
-        nch, one[2].shape[1], int(one[3][0])) + 1
+    steps = n + pipe_last(nch, Lt, int(args[3][m]), M=M, Lq=Lq) + 1
     return dict(rows=n, steps=steps, ms=ms, empty_ms=ms0,
                 step_ns=1e6 * (ms - ms0) / max(steps, 1))
 
@@ -483,6 +559,12 @@ def run(dev, log=print) -> dict:
     ...).
     Raises if a kernel differs from its plain version."""
     card = smi_name_power()
+    probe = dpx_probe(dev)
+    sem = probe.pop("semantics")
+    log("dpx probe, clocks a scheduler per warp instruction (throughput: "
+        "8 chains, 4 warps a scheduler; latency: one chain): " + "; ".join(
+            f"{k} {v['throughput']:.2f} / {v['latency']:.2f}"
+            for k, v in probe.items()) + f"; s16x2 semantics {sem} [{card}]")
     sets = {"bench": bench_inputs(dev), "sweep": sweep_inputs(dev),
             "edges": edge_inputs(dev)}
     stops = {f"stop{lt}": rect_stop_inputs(dev, Lt=lt)
@@ -528,6 +610,9 @@ def run(dev, log=print) -> dict:
     # launches of full bench batches; the longest lane's one-lane
     # launches are left out
     launches = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+    P, S = k3_segment(B, LQ, LT)
+    log(f"K3 segments for {B} lanes of {LQ} x {LT}: {P} threads x {S} "
+        f"slots [{card}]")
     out = {}
     for name, k in RECT_KERNELS.items():
         ms_each = []

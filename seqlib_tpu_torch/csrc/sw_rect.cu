@@ -16,44 +16,41 @@
 // and writes 20 B) but the dependent integer work of the DP, at least 8
 // int32 instructions per cell (bench_sw.OPS_PER_CELL), with the E
 // (deletion) recurrence making each cell of a row depend on every cell
-// to its left.  At the extension bench's
-// shape (1024 lanes, 150 x 251 cells) a call is at most 38.6 M cells,
-// and z-drop stops most lanes early (6.8 M cells needed), so a call
-// lasts about as long as its longest lane's dependent chain.
+// to its left.  At the extension bench's shape (1024 lanes, 150 x 251
+// cells) a call is at most 38.6 M cells, and z-drop stops most lanes
+// early (6.8 M cells needed), so a call lasts about as long as its
+// longest lane's dependent chain.
 //
-// The designs:
-// * K3: one warp per lane.  Thread t owns the contiguous strip of columns
-//   [t*S, t*S + S) in registers (S = ceil((Lt+1)/32), a template).  The
-//   diagonal input at a strip's left edge comes from the neighbour thread
-//   by __shfl_up_sync, F stays in registers, and E is a serial running
-//   max inside the strip plus a 5-step warp exclusive prefix-max of the
-//   strip maxima as the carry (the TPU kernel's log-step shift-max scan,
-//   run over 32 strips instead of TW sublanes).
-// * K4 and K5: a pipelined-row wavefront (pipe_rect below).  A lane gets
-//   a segment of P threads, each owning a contiguous strip of S columns
-//   in registers, and thread t computes row i - t while thread 0
-//   computes row i: the E carry, the left edge's H and the row's running
-//   maxima pass one thread to the right each step by independent
-//   shuffles, so no row pays a warp scan or a warp argmax; the lane's
-//   last live thread sees each row complete, in order, and alone keeps
-//   the best cell, gscore and the z-drop test.  K4 (the TPU kernel's
-//   blocked scan, which kept the whole row in one core's lanes) takes
-//   P = 32, a warp per lane.  K5 (the TPU kernel's NCH independent row
-//   chains interleaved in one core) takes P = 32 / nch: nch lanes side
-//   by side in a warp, with no state outside registers.  Each step
-//   costs one shuffle latency plus S cells of ~11-13 int32 instructions
-//   (Hopper's DPX add-max, __viaddmax_s32, for F, H and E), and a lane
-//   takes its rows + P - 1 steps (+1 for the stop to reach every
-//   thread).
+// The designs, all three a pipelined-row wavefront (pipe_rect below): a
+// lane gets a segment of P threads, each owning a contiguous strip of S
+// columns in registers, and thread t computes row i - t while thread 0
+// computes row i: the E carry, the left edge's H and the row's running
+// maxima pass one thread to the right each step by independent
+// shuffles, so no row pays a warp scan or a warp argmax; the lane's
+// last live thread sees each row complete, in order, and alone keeps
+// the best cell, gscore and the z-drop test.  Each step costs one
+// shuffle latency plus S cells of ~11-13 int32 instructions (Hopper's
+// DPX add-max, __viaddmax_s32, for F, H and E), and a lane takes its
+// rows + P - 1 steps (+1 for the stop to reach every thread).
+// * K4 (the TPU kernel's blocked scan, which kept the whole row in one
+//   core's lanes) takes P = 32, a warp per lane.
+// * K5 (the TPU kernel's NCH independent row chains interleaved in one
+//   core) takes P = 32 / nch: nch lanes side by side in a warp, with no
+//   state outside registers.
+// * K3 (the TPU kernel's rows in order, E by a log-step prefix max)
+//   chooses its segment per call (k3_shape: P - 1 fill steps a lane
+//   against S serial cells a step against the warps each scheduler
+//   carries) and runs in K4's or K5's kernel: at the bench's 1024 lanes
+//   of 150 x 250, P = 16 and S = 16.  A form with two lanes in each
+//   register (s16x2 DPX) lost to it at that batch size (PERF.md §6).
 //
 // Shared semantics (those of the plain version):
 // * row 0: H(0,0) = h0, H(0,j) = h0 - o_del - e_del*j, NEG where < 0;
 // * columns j > tlen are NEG (dead); nothing flows leftwards, so the
 //   live columns never read them;
 // * best cell: highest score, then earliest row, then smallest column
-//   (K3: per thread a strict '>' in row-major order, then a
-//   lexicographic warp reduction; K4/K5: a strict '>' over the row
-//   maxima, which arrive in row order); score <= 0 reports (0, 0, 0);
+//   (a strict '>' over the row maxima, which arrive in row order);
+//   score <= 0 reports (0, 0, 0);
 // * z-drop (zdrop > 0): the row max over columns >= 1 (clamped at -1)
 //   and its smallest column; a lane stops when it drops more than zdrop
 //   below the best (ksw_extend's gap-corrected test) or when the row
@@ -84,11 +81,6 @@ struct Params {
   int o_del, e_del, o_ins, e_ins, match, mismatch, zdrop;
 };
 
-__device__ __forceinline__ int subst(int tc, int qi, int match,
-                                     int mismatch) {
-  return (tc == qi && tc < 4 && qi < 4) ? match : -mismatch;
-}
-
 __device__ __forceinline__ int row0(int j, int h0, int tl, int o_del,
                                     int e_del) {
   int v = j == 0 ? h0 : h0 - (o_del + e_del * j);
@@ -97,100 +89,7 @@ __device__ __forceinline__ int row0(int j, int h0, int tl, int o_del,
 }
 
 // ---------------------------------------------------------------------------
-// K3: warp per lane, contiguous strips
-// ---------------------------------------------------------------------------
-
-template <int S>
-__global__ void __launch_bounds__(128) rect_strip_kernel(Params p) {
-  const int lane = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int t = threadIdx.x & 31;
-  if (lane >= p.M) return;  // the whole warp leaves together
-  const int8_t* q = p.query + (size_t)lane * p.Lq;
-  const int8_t* tg = p.target + (size_t)lane * p.Lt;
-  const int ql = p.qlen[lane];
-  const int tl = min(p.tlen[lane], p.Lt);
-  const int h0 = p.h0[lane];
-  const int oe_ins = p.o_ins + p.e_ins;
-  const int j0 = t * S;
-
-  int H[S], F[S], tc[S];
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const int j = j0 + k;
-    tc[k] = (j >= 1 && j <= p.Lt) ? tg[j - 1] : 4;
-    H[k] = row0(j, h0, tl, p.o_del, p.e_del);
-    F[k] = NEG;
-  }
-
-  int best = 0, bi = 0, bj = 0;
-  int zbest = h0, zbi = 0, zbj = 0;
-  int gscore = NEG, gtle = 0;
-  const int rows = min(ql, p.Lq);
-  for (int i = 0; i < rows; ++i) {
-    const int qi = q[i];
-    // H(i-1, j0-1): the left neighbour's last column (none for j = 0)
-    int diag = __shfl_up_sync(FULL, H[S - 1], 1);
-    if (t == 0) diag = NEG;
-    // pass 1: F and the H candidate without E; the strip's max of
-    // hnd(j) + e_del*j
-    int gmax = NEG;
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const int j = j0 + k;
-      const int hp = H[k];
-      const int f = max(hp - oe_ins, F[k] - p.e_ins);
-      const int hnd = j >= 1
-          ? max(diag + subst(tc[k], qi, p.match, p.mismatch), f)
-          : max(f, NEG);
-      diag = hp;
-      F[k] = f;
-      H[k] = hnd;
-      gmax = max(gmax, hnd + p.e_del * j);
-    }
-    // exclusive prefix max of the strip maxima
-    int incl = gmax;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(FULL, incl, d);
-      if (t >= d) incl = max(incl, v);
-    }
-    int run = __shfl_up_sync(FULL, incl, 1);
-    if (t == 0) run = NEG;
-    // pass 2: E, H, and the row's reductions
-    const bool last = i == ql - 1;
-    int rowmax = -1, mj = 0, gmx = INT_MIN, gix = 0;
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const int j = j0 + k;
-      const int hnd = H[k];
-      const int E = run - p.o_del - p.e_del * j;
-      run = max(run, hnd + p.e_del * j);
-      int h = max(hnd, E);
-      if (j > tl) h = NEG;
-      H[k] = h;
-      if (j >= 1) {
-        if (h > best) { best = h; bi = i; bj = j; }
-        if (h > rowmax) { rowmax = h; mj = j; }
-      }
-      if (last && j <= p.Lt && h > gmx) { gmx = h; gix = j; }
-    }
-    if (last) {
-      warp_argmax(gmx, gix);
-      gscore = gmx;
-      gtle = gix;
-    }
-    if (p.zdrop > 0) {
-      warp_argmax(rowmax, mj);
-      if (zdrop_stop(i, rowmax, mj, zbest, zbi, zbj, p.e_del, p.e_ins,
-                     p.zdrop))
-        break;
-    }
-  }
-  warp_finish(p.out, p.M, lane, best, bi, bj, gscore, gtle);
-}
-
-// ---------------------------------------------------------------------------
-// K4 and K5: pipelined-row wavefront
+// K3, K4 and K5: pipelined-row wavefront
 // ---------------------------------------------------------------------------
 
 // One lane on a segment of P consecutive threads of a warp (32 / P
@@ -353,13 +252,13 @@ __device__ __forceinline__ void pipe_rect(const Params& p, int lane) {
   }
 }
 
-// K4: one lane per warp (P = 32)
+// K4: one lane per warp (P = 32); K3 at P = 32
 template <int S>
 __global__ void __launch_bounds__(128) rect_blocked_kernel(Params p) {
   pipe_rect<32, S>(p, (blockIdx.x * blockDim.x + threadIdx.x) >> 5);
 }
 
-// K5: 32 / P lanes per warp, side by side (P = 32 / nch)
+// K5: 32 / P lanes per warp, side by side (P = 32 / nch); K3 at P = 8, 16
 template <int P, int S>
 __global__ void __launch_bounds__(128) rect_interleaved_kernel(Params p) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -401,6 +300,58 @@ void pipe_shape(int Lt, int nch, int& P, int& S) {
   S = slots_for(Lt, P);
 }
 
+// the kernels' Hopper facts: 4 schedulers an SM, each issuing an int32
+// (or DPX) warp instruction every 2 clocks, 16 lanes a clock
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0) {
+      cudaGetLastError();  // not sticky: leave no error for the launch
+      n = 132;
+    }
+  }
+  return n;
+}
+
+// K3's segment shape for M lanes of Lq x Lt: P threads (8, 16 or 32)
+// and S = slots_for(Lt, P), the one of least estimated time.  A lane
+// takes up to Lq + P steps (its rows, unknown before the run, at most
+// Lq, and the pipeline's fill), a step about 12 S + 59 warp instructions
+// (the SASS count of the step loop, 251 at S = 16, PERF.md), and a
+// scheduler with more than one warp issues for all of them: the estimate
+// trades P - 1 fill steps a lane, S serial cells a step and the warps
+// each of the 4 * SMs schedulers carries.
+void k3_shape(int M, int Lq, int Lt, int& P, int& S) {
+  const double schedulers = 4.0 * sm_count();
+  double best = -1;
+  P = 32;
+  S = slots_for(Lt, 32);
+  for (int cand = 8; cand <= 32; cand *= 2) {
+    const int s = slots_for(Lt, cand);
+    if (s == 0) continue;
+    const double warps = (double)((M + 32 / cand - 1) / (32 / cand));
+    const double load = warps > schedulers ? warps / schedulers : 1.0;
+    const double cost = (double)(Lq + cand) * (12 * s + 59) * load;
+    if (best < 0 || cost < best) {
+      best = cost;
+      P = cand;
+      S = s;
+    }
+  }
+}
+
+void launch_blocked(int S, int blocks, cudaStream_t st, const Params& p) {
+  switch (S) {
+    case 4: rect_blocked_kernel<4><<<blocks, 128, 0, st>>>(p); break;
+    case 8: rect_blocked_kernel<8><<<blocks, 128, 0, st>>>(p); break;
+    case 16: rect_blocked_kernel<16><<<blocks, 128, 0, st>>>(p); break;
+    default: rect_blocked_kernel<32><<<blocks, 128, 0, st>>>(p); break;
+  }
+}
+
 template <int P>
 void launch_interleaved(int S, int blocks, cudaStream_t st, const Params& p) {
   switch (S) {
@@ -409,6 +360,20 @@ void launch_interleaved(int S, int blocks, cudaStream_t st, const Params& p) {
     case 16: rect_interleaved_kernel<P, 16><<<blocks, 128, 0, st>>>(p); break;
     default: rect_interleaved_kernel<P, 32><<<blocks, 128, 0, st>>>(p); break;
   }
+}
+
+// K3 on k3_shape's segment, in K4's kernel (P = 32) or K5's (P = 8, 16)
+void launch_k3(int M, int Lq, int Lt, cudaStream_t st, const Params& p) {
+  int P, S;
+  k3_shape(M, Lq, Lt, P, S);
+  const long long warps = (M + 32 / P - 1) / (32 / P);
+  const int blocks = (int)((warps * 32 + 127) / 128);
+  if (P == 8)
+    launch_interleaved<8>(S, blocks, st, p);
+  else if (P == 16)
+    launch_interleaved<16>(S, blocks, st, p);
+  else
+    launch_blocked(S, blocks, st, p);
 }
 
 }  // namespace
@@ -426,7 +391,16 @@ extern "C" int sw_rect_pipe_last(int Lt, int nch, int tl) {
   return pipe_last(tl < Lt ? tl : Lt, P, S);
 }
 
-// out: int32 [5, M] = score, qle, tle, gscore, gtle.  Lt <= 1023.
+// K3's segment for M lanes of Lq x Lt: P * 64 + S (P threads a segment,
+// S slots a thread); -1 for a shape the launcher refuses
+extern "C" int sw_rect_k3_shape(int M, int Lq, int Lt) {
+  if (Lt < 0 || Lt > 32 * MAX_SLOTS - 1) return -1;
+  int P, S;
+  k3_shape(M, Lq, Lt, P, S);
+  return P * 64 + S;
+}
+
+// K3: out int32 [5, M] = score, qle, tle, gscore, gtle.  Lt <= 1023.
 extern "C" int sw_extend_rect(const void* query, const void* qlen,
                               const void* target, const void* tlen,
                               const void* h0, void* out, int M, int Lq,
@@ -437,15 +411,7 @@ extern "C" int sw_extend_rect(const void* query, const void* qlen,
     const Params p = make_params(query, qlen, target, tlen, h0, out, M, Lq,
                                  Lt, o_del, e_del, o_ins, e_ins, match,
                                  mismatch, zdrop);
-    const int threads = 128;
-    const int blocks = (int)(((long long)M * 32 + threads - 1) / threads);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (slots_for(Lt)) {
-      case 4: rect_strip_kernel<4><<<blocks, threads, 0, st>>>(p); break;
-      case 8: rect_strip_kernel<8><<<blocks, threads, 0, st>>>(p); break;
-      case 16: rect_strip_kernel<16><<<blocks, threads, 0, st>>>(p); break;
-      default: rect_strip_kernel<32><<<blocks, threads, 0, st>>>(p); break;
-    }
+    launch_k3(M, Lq, Lt, static_cast<cudaStream_t>(stream), p);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -465,12 +431,7 @@ extern "C" int sw_extend_rect_blocked(const void* query, const void* qlen,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int P, S;
     pipe_shape(Lt, 1, P, S);
-    switch (S) {
-      case 4: rect_blocked_kernel<4><<<blocks, threads, 0, st>>>(p); break;
-      case 8: rect_blocked_kernel<8><<<blocks, threads, 0, st>>>(p); break;
-      case 16: rect_blocked_kernel<16><<<blocks, threads, 0, st>>>(p); break;
-      default: rect_blocked_kernel<32><<<blocks, threads, 0, st>>>(p); break;
-    }
+    launch_blocked(S, blocks, st, p);
   }
   return static_cast<int>(cudaGetLastError());
 }

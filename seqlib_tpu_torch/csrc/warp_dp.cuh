@@ -60,9 +60,9 @@ __device__ __forceinline__ void warp_finish(int32_t* __restrict__ out,
     write_lane(out, M, lane, best, bi, bj, gscore, gtle);
 }
 
-// z-drop decision for one computed row (K1/K3: identical on every thread
-// of the warp once the row max has been reduced; K4/K5: on the lane's
-// last thread)
+// z-drop decision for one computed row (K1: identical on every thread
+// of the warp once the row max has been reduced; K3-K5: on the lane's
+// owner thread)
 __device__ __forceinline__ bool zdrop_stop(int i, int m, int mj, int& zbest,
                                            int& zbi, int& zbj, int e_del,
                                            int e_ins, int zdrop) {

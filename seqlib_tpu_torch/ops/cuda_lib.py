@@ -46,6 +46,12 @@ SIGNATURES = {
         "sw_extend_rect_interleaved": [_VP] * 6 + [_CI] * 11 + [_VP],
         "sw_rect_max_width": [],
         "sw_rect_pipe_last": [_CI] * 3,
+        "sw_rect_k3_shape": [_CI] * 3,
+    },
+    # a measurement of the DPX instructions, not a kernel of the port
+    "dpx_probe": {
+        "dpx_probe": [_VP, _VP] + [_CI] * 5 + [_VP],
+        "dpx_semantics": [_VP, _VP],
     },
 }
 LIBRARIES = tuple(SIGNATURES)

@@ -23,8 +23,8 @@ import torch
 
 NEG = -0x40000000  # -inf surrogate that survives additions
 NEG16 = -16384     # the TPU rectangle kernels' -inf surrogate
-# the widest target the rectangle kernels take: K3/K4 keep Lt + 1
-# columns in 32 register slots of a warp (csrc/sw_rect.cu's MAX_SLOTS)
+# the widest target the rectangle kernels take: they keep Lt + 1 columns
+# in at most 32 threads of 32 register slots (csrc/sw_rect.cu's MAX_SLOTS)
 RECT_MAX_LT = 1023
 
 # extend_batch's running maxima are int64 (score, index) packs: the high

@@ -231,6 +231,8 @@ def test_aligner_gpu_equals_cpu(cuda, genome):
     # the stop-row lanes (bench_sw.rect_stop_inputs: stops on rows 0, 1,
     # P - 2 .. P and 2P of each pipeline depth and on the last row, ties,
     # empty and oversized lanes), 64 lanes, or 61 (not a multiple of nch)
+    + [("K3", "|stop", Lt, zd) for Lt in STOP_WIDTHS
+       for zd in (0,) + STOP_ZDROPS + (100,)]
     + [("K4", "|stop", Lt, zd) for Lt in STOP_WIDTHS
        for zd in (0,) + STOP_ZDROPS + (100,)]
     + [("K5", f"nch={n}|stop", Lt, zd) for n in (2, 3) for Lt in STOP_WIDTHS
@@ -249,6 +251,64 @@ def test_rect_kernels_equal_plain(cuda, kernel, variant, Lt, zdrop):
     want = extend_rect(*args, zdrop=zdrop)
     for k in KEYS:
         assert torch.equal(got[k], want[k]), k
+
+
+def _extreme_lanes(dev, M, Lq, Lt, match, h0_room, seed):
+    """Random lanes (codes 0-4) and, every other lane, near-identical
+    ones, whose h0 is set so that h0 + match * min(qlen, tlen) = 32767 +
+    h0_room (h0 >= 0): scores at and past the int16 range."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 5, (M, Lq)).astype(np.int8)
+    t = rng.integers(0, 5, (M, Lt)).astype(np.int8)
+    ql = rng.integers(0, Lq + 1, M).astype(np.int32)
+    tl = rng.integers(0, Lt + 1, M).astype(np.int32)
+    for m in range(0, M, 2):
+        n = min(int(ql[m]), Lt)
+        t[m, :n] = q[m, :n]
+        tl[m] = max(int(tl[m]), n)
+        for p in rng.integers(0, max(n, 1), 2):
+            t[m, p] = (t[m, p] + 1) % 4
+    g = match * np.minimum(ql, tl)
+    h0 = np.maximum(32767 + h0_room - g, 0).astype(np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (q, ql, t, tl, h0)]
+
+
+# (label, M, Lq, Lt, scoring, the h0 rooms of the batch's two halves)
+EXTREME_CASES = [
+    # best scores at 32767 in one half, one past it in the other
+    ("h0 edge", 512, 150, 250, {}, (0, 1)),
+    ("large match", 512, 150, 250, dict(match=110), (-20000, -20000)),
+    ("large penalties", 512, 150, 250,
+     dict(o_del=40, e_del=20, o_ins=40, e_ins=20, mismatch=10),
+     (-30000, 1)),
+    # the largest shape check_rect_shape takes
+    ("largest shape", 64, 4095, 1023, {}, (0, 1)),
+    ("mismatch 1", 256, 150, 250, dict(mismatch=1), (-30000, -30000)),
+    # a batch that fills the card (K3's segment depends on M)
+    ("full card", 4096, 150, 250, {}, (-32000, -32000)),
+]
+
+
+@pytest.mark.parametrize("case", EXTREME_CASES,
+                         ids=[c[0] for c in EXTREME_CASES])
+def test_k3_extreme_lanes(cuda, case):
+    """K3 == extend_rect (tolerance 0) at zdrop 0 and 100 on large
+    scores, large match and gap penalties, the largest shape and a batch
+    that fills the card; each call launches K3 once."""
+    _, M, Lq, Lt, score, rooms = case
+    half = M // 2
+    a = _extreme_lanes(cuda, half, Lq, Lt, score.get("match", 1), rooms[0],
+                       seed=M + Lq)
+    b = _extreme_lanes(cuda, M - half, Lq, Lt, score.get("match", 1),
+                       rooms[1], seed=M + Lt)
+    args = [torch.cat([x, y]) for x, y in zip(a, b)]
+    for zdrop in (0, 100):
+        n0 = cuda_lib.LAUNCHES["sw_extend_rect"]
+        got = sw_cuda.extend_batch_rect(*args, zdrop=zdrop, **score)
+        assert cuda_lib.LAUNCHES["sw_extend_rect"] == n0 + 1
+        want = extend_rect(*args, zdrop=zdrop, **score)
+        for k in KEYS:
+            assert torch.equal(got[k], want[k]), (k, zdrop)
 
 
 def test_overflow_batch_gpu_equals_cpu(cuda):

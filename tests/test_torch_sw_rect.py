@@ -121,8 +121,8 @@ def _assert_equal(got: dict, want: dict):
 @pytest.mark.parametrize("kernel,zdrop", [
     ("K3", 0), ("K3", 100), ("K4", 0), ("K4", 100), ("K5/2", 100),
     ("K5/3", 100),
-    ("K3@stop", 0), ("K4@stop", 7), ("K5/2@stop", 100),
-    ("K5/3@stop", 10**6)])
+    ("K3@stop", 0), ("K3@stop", 7), ("K3@stop", 100), ("K3@stop", 10**6),
+    ("K4@stop", 7), ("K5/2@stop", 100), ("K5/3@stop", 10**6)])
 def test_rect_equals_jax_kernel(sweep, lanes, stop_lanes, kernel, zdrop):
     kernel, _, inputs = kernel.partition("@")
     if inputs:
@@ -203,3 +203,33 @@ def test_cuda_launcher_refuses_cpu_tensors(lanes):
         with pytest.raises(ValueError, match=f"Lt <= {RECT_MAX_LT}"):
             extend_rect(torch.zeros((1, Lq), dtype=torch.int8), one,
                         torch.zeros((1, Lt), dtype=torch.int8), one, one)
+
+
+# scorings at the edges of what the rectangle kernels take: large
+# scores, a large match, large gap penalties, a mismatch of 1
+EXTREME_SCORES = {
+    "default": {}, "match 110": dict(match=110),
+    "large penalties": dict(o_del=40, e_del=20, o_ins=40, e_ins=20,
+                            mismatch=10),
+    "mismatch 1": dict(mismatch=1)}
+
+
+@pytest.mark.parametrize("zdrop", [0, 100])
+@pytest.mark.parametrize("score", EXTREME_SCORES)
+def test_rect_extreme_scores_equal_jax(lanes, score, zdrop):
+    """K3's function on CPU tensors == the JAX package's extend_batch
+    (band 0) on lanes whose best scores reach 32767 and pass it (h0 +
+    match * min(qlen, tlen) = 32767 on the first half of the lanes,
+    32768 on the second), under each EXTREME_SCORES scoring; tolerance 0 with the
+    dead-gscore rule."""
+    kw = EXTREME_SCORES[score]
+    q, ql, t, tl, _ = lanes
+    g = kw.get("match", 1) * np.minimum(ql, tl)
+    h0 = (32767 + (np.arange(B) >= B // 2) - g).astype(np.int32)
+    src = (q, ql, t, tl, h0)
+    got = sw_cuda.extend_batch_rect(*(torch.from_numpy(a) for a in src),
+                                    zdrop=zdrop, **kw)
+    want = {k: np.asarray(v) for k, v in jax_extend_batch(
+        *(jnp.asarray(a) for a in src), zdrop=zdrop, **kw).items()}
+    _assert_equal(got, want)
+    assert {32767, 32768} <= set(got["score"].tolist())
