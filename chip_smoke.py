@@ -60,11 +60,27 @@ last line is printed):
    first 512 pairs against a CPU run given the card's insert-size
    statistics, byte for byte; >= 95% of the period-8 mates rescued
    within 20 bp, flagged proper; pairs/s and the proper-pair share;
-11. long edges: K1 at Lq 4095-6200 (w 32/100, zdrop 0/100) and 30,000
+11. bam: the main reference cut into chr1..chr3 (2.0, 1.6 and 1.0 Mbp;
+   chr2's first 500 bases N) and indexed; the 32,768 main reads through
+   ``align_stream_bam(sam=False)`` on the card into ``BamWriter(BAM).
+   write_records_bytes`` (out.bam), read back with ``FastBamReader``,
+   the primaries' reads realigned on the card, ``sort_by_position``,
+   ``BamWriter`` with ``enable_indexing`` (out.sorted.bam + .bai) and 200
+   region queries through ``BamReader.set_region`` and ``fetch_region``,
+   counters reset just before and read just after: the first 512 reads'
+   BAM bytes on the card == on the CPU, as read and as realigned;
+   out.bam through ``BamReader`` == ``align_batch_bam(sam=True)`` line
+   for line, ``FastBamReader`` == ``BamReader``; >= 99% of the MAPQ >= 20
+   primaries keep contig and position; every region == the brute-force
+   answer under each reader's rule, with the inline .bai and with
+   ``build_index``'s; write MB/s (inside the stream, and the native and
+   Python routes alone, in turns), records/s read, ms a region query,
+   realign reads/s;
+12. long edges: K1 at Lq 4095-6200 (w 32/100, zdrop 0/100) and 30,000
    (four lanes' codes past 227 KB of shared memory, read from global
    memory), K2 at L 12,289 and 60,000, each against its plain version
    on the card (tolerance 0) and timed;
-12. assembly-local (configuration 3): 5,000 pairs of 2 x 150 bp (error
+13. assembly-local (configuration 3): 5,000 pairs of 2 x 150 bp (error
    rate 0.005) over the reference's first 50 kb through ``BFC`` (train,
    error_correct) and ``FermiAssembler.perform_assembly`` on the card,
    counters reset just before and read just after: exactly one contig,
@@ -72,7 +88,7 @@ last line is printed):
    complement; corrected reads, contigs, unitig links and GFA text equal
    to the port's CPU run byte for byte; stage times, peak device memory,
    and one walk again under torch.profiler (launches, busy share);
-13. bfc-genome: BFC on the whole reference at 30x (460,000 pairs of 2 x
+14. bfc-genome: BFC on the whole reference at 30x (460,000 pairs of 2 x
    150 bp, error rate 0.005) on the card, counters reset just before and
    read just after: the card's k-mer table equals the port's CPU count,
    4,096 walked rows equal a CPU walk with the card's table, and the
@@ -80,7 +96,7 @@ last line is printed):
    ``before + 0.5 (n - before)`` and 90%; corrected reads/s and
    bases/s, stage times, unique k-mers, kcov, min_cov, peak memory, and
    one traced walk;
-14. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
+15. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
    probe line (clocks a scheduler per warp instruction of the s16x2 and
    int32 add-max, PRMT, and the s16x2 forms' edge semantics); then each
    kernel held against its plain version on the card, tolerance 0, on
@@ -93,9 +109,9 @@ last line is printed):
    per-call wrapper time, as for K1 and K2, beside the earlier layouts'
    times (PERF.md), and each variant's longest lane alone: rows,
    pipeline steps, ns a step), whose launches they report;
-15. one JSON line of all five kernels' numbers, each with its launches
+16. one JSON line of all five kernels' numbers, each with its launches
    on each path it has (``by_path``: K1 and K2 main, overflow, long,
-   paired; K3-K5 bench; all five assembly, where no TPU-kernel
+   paired, bam; K3-K5 bench; all five assembly, where no TPU-kernel
    counterpart runs), K1's and K2's long path with their mean device ms
    and bound.
 
@@ -104,6 +120,8 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import bisect
+import functools
 import io
 import json
 import os
@@ -111,6 +129,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -120,6 +139,8 @@ from seqlib_tpu_torch import bench_sw
 from seqlib_tpu_torch.align import BWAAligner
 from seqlib_tpu_torch.assembly import BFC, FermiAssembler
 from seqlib_tpu_torch.assembly.bfc import encode_reads
+from seqlib_tpu_torch.core import (FSECONDARY, FSUPPLEMENTARY, FUNMAP,
+                                   GenomicRegion, sort_by_position)
 from seqlib_tpu_torch.core.seq import revcomp
 from seqlib_tpu_torch.core.unaligned import UnalignedSequence
 from seqlib_tpu_torch.bench_sw import (band_cells_needed, cuda_ms,
@@ -127,6 +148,12 @@ from seqlib_tpu_torch.bench_sw import (band_cells_needed, cuda_ms,
                                        k1_long_inputs, max_abs_diff, roof_ms,
                                        smi_name_power)
 from seqlib_tpu_torch.index import FMIndex
+from seqlib_tpu_torch.io import BAM, BamReader, BamWriter, BgzfReader, \
+    BgzfWriter
+from seqlib_tpu_torch.io.bam import encode_record, read_bam_header, \
+    read_record
+from seqlib_tpu_torch.io.fast_bam import FastBamReader, fetch_region
+from seqlib_tpu_torch.io.sam import format_sam_line
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, kmer, sw_cuda
 from seqlib_tpu_torch.ops.fm import _smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch
@@ -144,6 +171,10 @@ LONG_BATCH = 32
 PAIR_BATCH = 4096                  # paired phase: 2 x 4096 pairs
 PAIR_BATCHES = 2
 PAIR_CHECK = 512                   # pairs held against the CPU run
+BAM_CUTS = (2_000_000, 3_600_000)  # bam phase: chr1..chr3 of 2.0, 1.6, 1.0 Mbp
+BAM_NRUN = 500                     # N at the start of chr2
+BAM_CHECK = 512                    # reads held against the CPU run
+BAM_REGIONS = 200
 # K1 at long shapes (Lq, w, zdrop): across the 4096 rows of the JAX
 # package's packed tie-break, and four lanes' codes across 48 KB (Lq
 # 6200) and 227 KB (Lq 30,000) of shared memory; K2 at read lengths
@@ -951,6 +982,267 @@ def paired_phase(aln, genome: str, card: str):
     return launches
 
 
+def bam_contigs(genome: str) -> list[tuple[str, str]]:
+    """The main reference cut into chr1..chr3 (BAM_CUTS), the first
+    BAM_NRUN bases of chr2 turned into N."""
+    a, b = BAM_CUTS
+    return [("chr1", genome[:a]),
+            ("chr2", "N" * BAM_NRUN + genome[a + BAM_NRUN:b]),
+            ("chr3", genome[b:])]
+
+
+def decode_payload(payload: bytes) -> list:
+    """Serialised BAM records -> BamRecords."""
+    return list(iter(functools.partial(read_record, io.BytesIO(payload)),
+                     None))
+
+
+def region_set(hdr, n: int, seed: int) -> list[tuple[int, int, int]]:
+    """n regions (tid, 1-based pos1, pos2) over every contig: around the
+    N run at chr2's start, across each contig's ends, the rest random and
+    up to 20 kb wide."""
+    rng = np.random.default_rng(seed)
+    out = [(1, 1, BAM_NRUN), (1, 1, BAM_NRUN + 200),
+           (1, BAM_NRUN - 100, BAM_NRUN + 300),
+           (1, BAM_NRUN - 50, BAM_NRUN + 20_000),
+           (0, hdr.get_sequence_length(0) - 5_000,
+            hdr.get_sequence_length(0)), (2, 1, 3_000)]
+    while len(out) < n:
+        tid = int(rng.integers(0, 3))
+        ln = hdr.get_sequence_length(tid)
+        p1 = int(rng.integers(1, ln))
+        out.append((tid, p1, min(ln, p1 + int(rng.integers(0, 20_000)))))
+    return out
+
+
+def bam_phase(genome: str, reads, dev, card: str, workdir: str) -> dict:
+    """The main reads to an indexed BAM on a three-contig reference, as a
+    user of BAM output runs it, counters reset just before and read just
+    after: ``align_stream_bam(sam=False)`` on the card ->
+    ``BamWriter(BAM).write_records_bytes`` -> out.bam -> ``FastBamReader``
+    -> the primaries' reads realigned on the card -> ``sort_by_position``
+    -> ``BamWriter`` with ``enable_indexing`` -> out.sorted.bam + .bai ->
+    region queries (``BamReader.set_region``, ``fetch_region``).  Then
+    the checks: the first BAM_CHECK reads' BAM bytes on the card == on
+    the CPU (as read and as realigned); out.bam decodes to the SAM lines
+    of ``align_batch_bam(sam=True)``; FastBamReader == BamReader; >= 99%
+    of the MAPQ >= 20 primaries keep contig and position on
+    realignment; BAM_REGIONS regions equal each reader's brute-force
+    answer, with the inline .bai and with one from ``build_index``."""
+    t_phase = time.time()
+    t0 = time.time()
+    contigs = bam_contigs(genome)
+    idx = FMIndex.construct(contigs)
+    aln = BWAAligner(idx, device=dev)
+    hdr = idx.header_from_index()
+    log(f"bam: reference {[(n, len(s)) for n, s in contigs]} ({BAM_NRUN} N "
+        f"at chr2's start); index + upload {time.time() - t0:.1f} s")
+    out_bam = os.path.join(workdir, "out.bam")
+    sorted_bam = os.path.join(workdir, "out.sorted.bam")
+    stream = [UnalignedSequence(n, s) for n, s in reads]
+    sync = torch.cuda.synchronize
+    sync()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    # -- the path ----------------------------------------------------------
+    w = BamWriter(BAM)
+    w.open(out_bam)
+    w.set_header(hdr)
+    w.write_header()
+    t_write, payloads = 0.0, []
+    for _, payload, _ in aln.align_stream_bam(iter(stream), batch_size=BATCH):
+        t1 = time.time()
+        w.write_records_bytes(payload)
+        t_write += time.time() - t1
+        payloads.append(payload)
+    t1 = time.time()
+    w.close()
+    t_write += time.time() - t1
+    t_align = time.time() - t0
+    t1 = time.time()
+    fr = FastBamReader(out_bam)
+    fast_recs = list(fr)
+    fr.close()
+    t_fast = time.time() - t1
+    prim = [r for r in fast_recs
+            if not (r.flag & (FSECONDARY | FSUPPLEMENTARY | FUNMAP))]
+    again = [UnalignedSequence(r.qname, r.seq, r.qualities()) for r in prim]
+    t1 = time.time()
+    payloads2 = [p for _, p, _ in aln.align_stream_bam(iter(again),
+                                                       batch_size=BATCH)]
+    sync()
+    t_realign = time.time() - t1
+    t1 = time.time()
+    realigned = sort_by_position(
+        [r for p in payloads2 for r in decode_payload(p)])
+    w = BamWriter(BAM)
+    w.open(sorted_bam)
+    w.set_header(hdr)
+    w.enable_indexing()
+    for r in realigned:
+        w.write_record(r)
+    w.close()
+    t_sorted = time.time() - t1
+    regions = region_set(hdr, BAM_REGIONS, seed=37)
+    rd = BamReader(sorted_bam)
+    t1 = time.time()
+    got_slow = []
+    for tid, p1, p2 in regions:
+        rd.set_region(GenomicRegion(tid, p1, p2))
+        got_slow.append([r.to_sam(hdr) for r in iter(rd.next, None)])
+    t_slow = time.time() - t1
+    t1 = time.time()
+    got_fast = []
+    for tid, p1, p2 in regions:
+        b = fetch_region(sorted_bam, tid, p1 - 1, p2)
+        got_fast.append([] if b is None else
+                        [b.record(i).to_sam(hdr) for i in range(len(b))])
+    t_fetch = time.time() - t1
+    rd.close()
+    wall = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    # ------------------------------------------------------------------------
+    raw = sum(len(p) for p in payloads)
+    comp = os.path.getsize(out_bam)
+    log(f"bam: the path in {wall:.2f} s: {len(reads)} reads aligned and "
+        f"written in {t_align:.2f} s ({len(reads) / t_align:.0f} reads/s; "
+        f"{raw} B of records, {comp} B of BAM); FastBamReader "
+        f"{len(fast_recs)} records in {t_fast:.2f} s; {len(again)} "
+        f"primaries realigned in {t_realign:.2f} s = "
+        f"{len(again) / t_realign:.0f} reads/s; {len(realigned)} records "
+        f"sorted and written with the index in {t_sorted:.2f} s; launches "
+        f"{launches} [{card}]")
+    for k in cuda_lib.MAIN_PATH:
+        if launches[k] <= 0:
+            raise AssertionError(f"bam: kernel {k} not launched")
+    log(f"bam: BAM write inside the stream (write_records_bytes, sharing "
+        f"the host with the stream's emission threads): "
+        f"{raw / t_write / 1e6:.1f} MB/s of records [{card}]")
+    # the two BGZF routes alone, in turns, on the path's payloads
+    routes = {}
+    for name in ("write_bulk", "write", "write", "write_bulk"):
+        path = os.path.join(workdir, f"out.{name}.bgzf")
+        t1 = time.time()
+        w = BgzfWriter(path)
+        for p in payloads:
+            getattr(w, name)(p)
+        w.close()
+        routes.setdefault(name, []).append(
+            (time.time() - t1, os.path.getsize(path)))
+        if BgzfReader(path).read(raw + 1) != b"".join(payloads):
+            raise AssertionError(f"bam: BgzfWriter.{name} does not inflate "
+                                 "to the records")
+    for name, what in (("write_bulk", "native deflate on threads"),
+                       ("write", "Python zlib, one member at a time")):
+        log(f"bam: BAM write, {name} ({what}), alone: " + ", ".join(
+            f"{raw / t / 1e6:.1f} MB/s of records, {n / t / 1e6:.1f} MB/s "
+            "of BGZF" for t, n in routes[name]) + f" [{card}]")
+    bz = BgzfReader(out_bam)
+    read_bam_header(bz)
+    if bz.read(raw + 1) != b"".join(payloads):
+        raise AssertionError("bam: out.bam does not inflate to the records")
+    # -- checks ------------------------------------------------------------
+    k = BAM_CHECK
+    t1 = time.time()
+    cpu = BWAAligner(idx, device="cpu")
+    for what, batch in (("as read", stream[:k]), ("as realigned", again[:k])):
+        seqs, names = [r.seq for r in batch], [r.name for r in batch]
+        g = aln.align_batch_bam(seqs, names)
+        c = cpu.align_batch_bam(seqs, names)
+        if g[0] != c[0] or not np.array_equal(g[1], c[1]):
+            raise AssertionError(f"bam: the first {k} reads {what}: GPU and "
+                                 "CPU BAM bytes differ")
+    log(f"bam: the first {k} reads, as read and as realigned: BAM bytes on "
+        f"the card == on the CPU (CPU runs {time.time() - t1:.1f} s)")
+    t1 = time.time()
+    rd = BamReader(out_bam)
+    slow_recs = list(iter(rd.next, None))
+    t_read = time.time() - t1
+    rd.close()
+    slow_sam = [format_sam_line(r, hdr) for r in slow_recs]
+    t1 = time.time()
+    want = "".join(aln.align_batch_bam([r.seq for r in stream[i:i + BATCH]],
+                                       [r.name for r in stream[i:i + BATCH]],
+                                       sam=True)[0].decode()
+                   for i in range(0, len(stream), BATCH)).splitlines()
+    if slow_sam != want:
+        bad = next(i for i, (a, b) in enumerate(zip(slow_sam, want))
+                   if a != b) if len(slow_sam) == len(want) else -1
+        raise AssertionError(f"bam: out.bam's SAM lines differ from "
+                             f"align_batch_bam(sam=True) (record {bad}; "
+                             f"{len(slow_sam)} vs {len(want)} lines)")
+    if [format_sam_line(r, hdr) for r in fast_recs] != slow_sam:
+        raise AssertionError("bam: FastBamReader and BamReader differ")
+    log(f"bam: out.bam through BamReader == align_batch_bam(sam=True) line "
+        f"for line ({len(want)} records; SAM run {time.time() - t1:.1f} s);"
+        f" FastBamReader == BamReader")
+    t1 = time.time()
+    fr = FastBamReader(out_bam)
+    n_cols = 0
+    while (batch := fr.read_batch()) is not None:
+        n_cols += len(batch)
+    fr.close()
+    t_cols = time.time() - t1
+    log(f"bam: read out.bam: BamReader {len(slow_recs) / t_read:.0f} "
+        f"records/s; FastBamReader {len(fast_recs) / t_fast:.0f} records/s "
+        f"as BamRecords, {n_cols / t_cols:.0f} records/s in columnar batches"
+        f" [{card}]")
+    # realignment keeps contig and position
+    first = {r.qname: (r.tid, r.pos, r.mapq) for r in prim}
+    second = {r.qname: (r.tid, r.pos) for r in realigned
+              if not (r.flag & (FSECONDARY | FSUPPLEMENTARY | FUNMAP))}
+    conf = [q for q, v in first.items() if v[2] >= 20]
+    kept = sum(1 for q in conf if second.get(q) == first[q][:2])
+    log(f"bam: {kept}/{len(conf)} primaries with MAPQ >= 20 keep contig and "
+        f"position on realignment ({100 * kept / max(len(conf), 1):.2f}%)")
+    if kept < 0.99 * len(conf):
+        raise AssertionError("bam: fewer than 99% of the confident "
+                             "primaries keep their place on realignment")
+    # regions against brute force, and the index built after close
+    t1 = time.time()
+    after = os.path.join(workdir, "out.after.bam")
+    w = BamWriter(BAM)
+    w.open(after)
+    w.set_header(hdr)
+    w.write_records_bytes(b"".join(encode_record(r) for r in realigned))
+    w.close()
+    if not w.build_index():
+        raise AssertionError("bam: build_index failed")
+    rd = BamReader(after)
+    n_hits = n_across = 0
+    keys = [(r.tid, r.pos) for r in realigned]
+    # no record reaches further than `reach` past its pos, so the records
+    # of a region start in [beg - reach, end)
+    reach = max(max(r.position_end() - r.pos,
+                    r.cigar.num_reference_consumed(), 1) for r in realigned)
+    for (tid, p1, p2), slow, fast in zip(regions, got_slow, got_fast):
+        beg, end = p1 - 1, p2
+        on = realigned[bisect.bisect_left(keys, (tid, beg - reach)):
+                       bisect.bisect_left(keys, (tid, end))]
+        brute = [r.to_sam(hdr) for r in on if r.position_end() > beg]
+        brute_fast = [r.to_sam(hdr) for r in on if r.pos + max(
+            r.cigar.num_reference_consumed(), 1) > beg]
+        rd.set_region(GenomicRegion(tid, p1, p2))
+        again_after = [r.to_sam(hdr) for r in iter(rd.next, None)]
+        if slow != brute or fast != brute_fast or again_after != slow:
+            raise AssertionError(f"bam: region {hdr.id2name(tid)}:{p1}-{p2}"
+                                 ": a reader differs from brute force")
+        n_hits += len(slow)
+        n_across += tid == 1 and p1 <= BAM_NRUN < p2
+    rd.close()
+    log(f"bam: {len(regions)} regions ({n_across} across chr2's N run; "
+        f"{n_hits} records in all): BamReader and fetch_region == brute "
+        f"force under each one's rule, the inline .bai == build_index's "
+        f"(checks {time.time() - t1:.1f} s)")
+    log(f"bam: region query {1e3 * t_slow / len(regions):.2f} ms through "
+        f"BamReader.set_region, {1e3 * t_fetch / len(regions):.2f} ms "
+        f"through fetch_region [{card}]")
+    log(f"bam: K1 {launches['sw_extend']} and K2 {launches['smem_machine']}"
+        f" launches on the path; phase {time.time() - t_phase:.1f} s "
+        f"[{card}]")
+    return launches
+
+
 def long_edge_phase(dev, fm, genome: str, card: str) -> None:
     """K1 and K2 at long shapes against their plain versions on the card
     (tolerance 0, grouped as in ``check_time_recorded``), each call
@@ -1471,6 +1763,8 @@ def main() -> int:
     t_new = time.time()
     long_launches, long_times = long_read_phase(aln, genome, card, load_ns)
     pair_launches = paired_phase(aln, genome, card)
+    with tempfile.TemporaryDirectory() as workdir:
+        bam_launches = bam_phase(genome, reads, dev, card, workdir)
     t0 = time.time()
     long_edge_phase(dev, rec.k2[0][0], genome, card)
     log(f"long edge phase: {time.time() - t0:.1f} s")
@@ -1479,8 +1773,10 @@ def main() -> int:
             main=path_fields(kernels[k]["launches"]),
             overflow=path_fields(over_launches[k]),
             long=path_fields(long_launches[k], long_times[k]),
-            paired=path_fields(pair_launches[k]))
-    log(f"long-read, paired and long edge phases: {time.time() - t_new:.1f} s"
+            paired=path_fields(pair_launches[k]),
+            bam=path_fields(bam_launches[k]))
+    log(f"long-read, paired, bam and long edge phases: "
+        f"{time.time() - t_new:.1f} s"
         f" [{card}]")
 
     # ---- BFC and assembly ----------------------------------------------------

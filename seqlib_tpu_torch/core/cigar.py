@@ -1,5 +1,4 @@
-"""Cigar / CigarField (counterpart of seqlib_tpu/core/cigar.py, the parts
-that alignment records and their SAM/BAM forms need).
+"""Cigar / CigarField (counterpart of seqlib_tpu/core/cigar.py).
 
 A Cigar is an ordered list of CigarFields with the standard BAM op codes
 (``MIDNSHP=XB`` -> 0..9).
@@ -92,6 +91,20 @@ class Cigar:
             self.fields.append(CigarField(m.group(2), int(m.group(1))))
         if pos != len(cig):
             raise ValueError(f"Cigar: malformed CIGAR string {cig!r}")
+
+    @classmethod
+    def from_arrays(cls, ops: np.ndarray, lens: np.ndarray) -> "Cigar":
+        """From parallel op-code and length arrays."""
+        c = cls()
+        c.fields = [CigarField(CIGAR_OPS[int(o)], int(l))
+                    for o, l in zip(ops, lens)]
+        return c
+
+    @classmethod
+    def from_bam_encoded(cls, enc: np.ndarray) -> "Cigar":
+        """From the BAM uint32 encoding: length << 4 | op code."""
+        enc = np.asarray(enc, dtype=np.uint32)
+        return cls.from_arrays(enc & 0xF, enc >> 4)
 
     def to_bam_encoded(self) -> np.ndarray:
         """BAM uint32 encoding: length << 4 | op code."""

@@ -62,6 +62,10 @@ class BamHeader:
         self._names.append(name)
         self._lengths.append(length)
 
+    def is_empty(self) -> bool:
+        """True when constructed empty."""
+        return not self._names and not self._text
+
     def num_sequences(self) -> int:
         return len(self._names)
 
@@ -92,6 +96,10 @@ class BamHeader:
     def sequences(self) -> list[HeaderSequence]:
         return [HeaderSequence(n, l)
                 for n, l in zip(self._names, self._lengths)]
+
+    # the reference API's names
+    IDtoName = id2name
+    Name2ID = name2id
 
     def __len__(self) -> int:
         return len(self._names)

@@ -21,3 +21,6 @@ class UnalignedSequence:
 
     def to_fasta(self) -> str:
         return f">{self.name}\n{self.seq}\n"
+
+
+UnalignedSequenceVector = list

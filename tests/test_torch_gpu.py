@@ -10,7 +10,9 @@ without one, so every test worker collects the same tests.  Outputs are
 integers and must be bit-equal (tolerance 0).
 """
 
+import functools
 import io
+import os
 
 import numpy as np
 import pytest
@@ -23,7 +25,11 @@ from seqlib_tpu_torch.bench_sw import (RECT_KERNELS, STOP_WIDTHS,
                                        STOP_ZDROPS, k1_edge_inputs,
                                        k1_long_inputs, rect_stop_inputs)
 from seqlib_tpu_torch.index import FMIndex
+from seqlib_tpu_torch.core import GenomicRegion, sort_by_position
 from seqlib_tpu_torch.core.unaligned import UnalignedSequence
+from seqlib_tpu_torch.io import BAM, BamReader, BamWriter
+from seqlib_tpu_torch.io.bam import read_record
+from seqlib_tpu_torch.io.fast_bam import FastBamReader
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, kmer, sw_cuda
 from seqlib_tpu_torch.ops.fm import DeviceFMIndex, _smem_machine, smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch, extend_rect
@@ -385,3 +391,64 @@ def test_assembly_gpu_equals_cpu(cuda):
                          f.get_contigs(), gfa.getvalue())
     assert out["cuda"] == out["cpu"]
     assert len(out["cuda"][5]) >= 1
+
+
+def _bam_path(dev, idx, reads, workdir):
+    """The bam phase of chip_smoke.py at a small size on one device:
+    align_stream_bam -> write_records_bytes -> FastBamReader -> realign
+    the primaries -> sort_by_position -> an indexed BamWriter."""
+    hdr = idx.header_from_index()
+    aln = BWAAligner(idx, device=dev)
+    out = os.path.join(workdir, f"{dev}.bam")
+    w = BamWriter(BAM)
+    w.open(out)
+    w.set_header(hdr)
+    for _, payload, _ in aln.align_stream_bam(
+            iter([UnalignedSequence(n, s) for n, s in reads]),
+            batch_size=len(reads)):
+        w.write_records_bytes(payload)
+    w.close()
+    again = [UnalignedSequence(r.qname, r.seq, r.qualities())
+             for r in FastBamReader(out) if not r.flag & 0x904]
+    payload, _ = aln.align_batch_bam([u.seq for u in again],
+                                     [u.name for u in again])
+    recs = sort_by_position(iter(functools.partial(
+        read_record, io.BytesIO(payload)), None))
+    srt = os.path.join(workdir, f"{dev}.sorted.bam")
+    w = BamWriter(BAM)
+    w.open(srt)
+    w.set_header(hdr)
+    w.enable_indexing()
+    for r in recs:
+        w.write_record(r)
+    w.close()
+    return [open(p, "rb").read() for p in (out, srt, srt + ".bai")], recs, \
+        hdr, srt
+
+
+def test_bam_path_gpu_equals_cpu(cuda, genome, tmp_path):
+    """One 1024-read batch on a three-contig reference (500 N at the
+    second's start) to an indexed BAM: .bam, sorted .bam and .bai bytes
+    on the card == on the CPU; K1 and K2 launched; 20 regions through
+    BamReader equal the brute-force answer."""
+    ctgs = [("chr1", genome[:90_000]),
+            ("chr2", "N" * 500 + genome[90_500:160_000]),
+            ("chr3", genome[160_000:])]
+    idx = FMIndex.construct(ctgs)
+    reads = simulate_reads(genome, 1024, seed=9)
+    cuda_lib.reset_launches()
+    g, recs, hdr, srt = _bam_path(cuda, idx, reads, str(tmp_path))
+    assert all(cuda_lib.LAUNCHES[k] > 0 for k in cuda_lib.MAIN_PATH)
+    c, _, _, _ = _bam_path("cpu", idx, reads, str(tmp_path))
+    assert g == c
+    rng = np.random.default_rng(4)
+    rd = BamReader(srt)
+    for k in range(20):
+        tid = k % 3
+        ln = hdr.get_sequence_length(tid)
+        p1 = 1 if k == 1 else int(rng.integers(1, ln))
+        p2 = min(ln, p1 + int(rng.integers(0, 20_000)))
+        rd.set_region(GenomicRegion(tid, p1, p2))
+        assert [r.to_sam(hdr) for r in iter(rd.next, None)] == \
+            [r.to_sam(hdr) for r in recs if r.tid == tid and r.pos < p2
+             and r.position_end() > p1 - 1]

@@ -62,7 +62,14 @@ def test_port_imports_no_jax_nor_jax_package():
               "seqlib_tpu_torch.assembly", "seqlib_tpu_torch.assembly.bfc",
               "seqlib_tpu_torch.assembly.overlap",
               "seqlib_tpu_torch.assembly.sgraph",
-              "seqlib_tpu_torch.assembly.fermi", "seqlib_tpu_torch.io.fastq"):
+              "seqlib_tpu_torch.assembly.fermi", "seqlib_tpu_torch.io.fastq",
+              "seqlib_tpu_torch.core.region", "seqlib_tpu_torch.core.seq",
+              "seqlib_tpu_torch.io.bgzf", "seqlib_tpu_torch.io.bai",
+              "seqlib_tpu_torch.io.sam", "seqlib_tpu_torch.io.bam_reader",
+              "seqlib_tpu_torch.io.bam_writer",
+              "seqlib_tpu_torch.io.threadpool",
+              "seqlib_tpu_torch.io.refgenome",
+              "seqlib_tpu_torch.io.fast_bam"):
         assert m in res["mods"], m
 
 
