@@ -88,7 +88,22 @@ last line is printed):
    complement; corrected reads, contigs, unitig links and GFA text equal
    to the port's CPU run byte for byte; stage times, peak device memory,
    and one walk again under torch.profiler (launches, busy share);
-14. bfc-genome: BFC on the whole reference at 30x (460,000 pairs of 2 x
+14. cli: the bam phase's reference written to ref.fa; ``seqtools
+   index`` (``cli.main``, in-process) writes bwa's five files;
+   ``FMIndex.load`` (no full SA; the locate walks LF to the samples at
+   interval 32) and the main reads through ``align_stream_bam`` on it;
+   ``seqtools align -b`` of 4,096 reads, ``align -2`` of 1,024 of the
+   paired phase's pairs and ``fml -f`` of the assembly-local window's
+   reads, on the card, counters reset just before and read just after:
+   the files == ``FMIndex.write`` of the constructed index, the loaded
+   arrays == the constructed ones; the loaded index's BAM records == the
+   bam phase's byte for byte, and GPU == CPU on 512 reads; the CLI's
+   BAM == ``align_batch`` + ``mark_supplementary``; >= 98% of the pairs
+   proper; fml's contig == the assembly-local phase's; the index,
+   write and load times, reads/s loaded against constructed in turns,
+   the locate's ms a batch and longest walk, the SA's bytes on the card
+   and peak memory;
+15. bfc-genome: BFC on the whole reference at 30x (460,000 pairs of 2 x
    150 bp, error rate 0.005) on the card, counters reset just before and
    read just after: the card's k-mer table equals the port's CPU count,
    4,096 walked rows equal a CPU walk with the card's table, and the
@@ -96,7 +111,7 @@ last line is printed):
    ``before + 0.5 (n - before)`` and 90%; corrected reads/s and
    bases/s, stage times, unique k-mers, kcov, min_cov, peak memory, and
    one traced walk;
-15. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
+16. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
    probe line (clocks a scheduler per warp instruction of the s16x2 and
    int32 add-max, PRMT, and the s16x2 forms' edge semantics); then each
    kernel held against its plain version on the card, tolerance 0, on
@@ -109,9 +124,9 @@ last line is printed):
    per-call wrapper time, as for K1 and K2, beside the earlier layouts'
    times (PERF.md), and each variant's longest lane alone: rows,
    pipeline steps, ns a step), whose launches they report;
-16. one JSON line of all five kernels' numbers, each with its launches
+17. one JSON line of all five kernels' numbers, each with its launches
    on each path it has (``by_path``: K1 and K2 main, overflow, long,
-   paired, bam; K3-K5 bench; all five assembly, where no TPU-kernel
+   paired, bam, cli; K3-K5 bench; all five assembly, where no TPU-kernel
    counterpart runs), K1's and K2's long path with their mean device ms
    and bound.
 
@@ -121,6 +136,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import functools
 import io
 import json
@@ -175,6 +191,9 @@ BAM_CUTS = (2_000_000, 3_600_000)  # bam phase: chr1..chr3 of 2.0, 1.6, 1.0 Mbp
 BAM_NRUN = 500                     # N at the start of chr2
 BAM_CHECK = 512                    # reads held against the CPU run
 BAM_REGIONS = 200
+CLI_ALIGN = 4096                   # cli phase: reads through `seqtools align`
+CLI_PAIRS = 1024                   # pairs through `seqtools align -2`
+CLI_CHECK = 512                    # reads held GPU against CPU, loaded index
 # K1 at long shapes (Lq, w, zdrop): across the 4096 rows of the JAX
 # package's packed tie-break, and four lanes' codes across 48 KB (Lq
 # 6200) and 227 KB (Lq 30,000) of shared memory; K2 at read lengths
@@ -979,7 +998,7 @@ def paired_phase(aln, genome: str, card: str):
     log(f"pairs: the first {k} pairs: GPU SAM == CPU SAM (given the card's "
         f"insert-size statistics) byte for byte ({len(g_sam)} records; CPU "
         f"run {time.time() - t0:.1f} s)")
-    return launches
+    return launches, (s1, s2, names)
 
 
 def bam_contigs(genome: str) -> list[tuple[str, str]]:
@@ -1240,6 +1259,260 @@ def bam_phase(genome: str, reads, dev, card: str, workdir: str) -> dict:
     log(f"bam: K1 {launches['sw_extend']} and K2 {launches['smem_machine']}"
         f" launches on the path; phase {time.time() - t_phase:.1f} s "
         f"[{card}]")
+    return launches, dict(aln=aln, payloads=payloads)
+
+
+# ---------------------------------------------------------------------------
+# the seqtools command line on bwa's index files
+# ---------------------------------------------------------------------------
+
+class LocateTimer:
+    """Wraps the pipeline's SA locate: synchronised ms per call and the
+    longest LF walk (steps) over the calls (a diagnostic run: it removes
+    any overlap)."""
+
+    def __init__(self):
+        import seqlib_tpu_torch.align.device_pipeline as dp
+        self._mod, self._orig = dp, dp.sa_lookup
+        self.ms: list[float] = []
+        self.longest = 0
+
+    def __enter__(self):
+        def timed(fm, ranks):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pos, steps = self._orig(fm, ranks, return_steps=True)
+            torch.cuda.synchronize()
+            self.ms.append(1e3 * (time.time() - t0))
+            self.longest = max(self.longest, int(steps.max()))
+            return pos
+
+        self._mod.sa_lookup = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.sa_lookup = self._orig
+
+
+def write_fasta(path: str, contigs, width: int = 80) -> None:
+    with open(path, "w") as fh:
+        for name, seq in contigs:
+            fh.write(f">{name}\n")
+            for i in range(0, len(seq), width):
+                fh.write(seq[i:i + width] + "\n")
+
+
+def write_fastq(path: str, recs) -> None:
+    """(name, seq) pairs as FASTQ, every quality 'I'."""
+    with open(path, "w") as fh:
+        for name, seq in recs:
+            fh.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n")
+
+
+def stream_sam(aln, stream) -> tuple[list, float, float]:
+    """``align_stream_bam(sam=False)`` over the stream: (payloads, s,
+    peak device MiB above what was allocated at its start)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    out = [p for _, p, _ in aln.align_stream_bam(iter(stream),
+                                                 batch_size=BATCH)]
+    torch.cuda.synchronize()
+    return out, time.time() - t0, \
+        (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def cli_phase(genome: str, reads, pairs, asm_contigs, bam_out: dict,
+              card: str, workdir: str) -> dict:
+    """What a user of the command line runs, on the bam phase's
+    three-contig reference written to ref.fa, counters reset just before
+    and read just after: ``seqtools index ref.fa`` (bwa's five files) ->
+    ``FMIndex.load`` (no full SA) -> ``align_stream_bam`` of the main
+    reads on the loaded index (the LF-walk locate) -> ``seqtools align``
+    of CLI_ALIGN reads to a BAM -> ``seqtools align -2`` of CLI_PAIRS of
+    the paired phase's pairs -> ``seqtools fml -f`` of the
+    assembly-local window's reads.  Then the checks: the loaded index's
+    arrays equal the constructed one's; its stream's BAM records equal
+    the bam phase's (constructed index) byte for byte; CLI_CHECK reads
+    GPU == CPU on it; the CLI's BAM decodes to ``align_batch`` +
+    ``mark_supplementary`` (``align`` restores no qualities); >= 98% of
+    the pairs proper; fml's contig is the assembly-local phase's.  And
+    loaded against constructed: reads/s in turns, the locate's ms a
+    batch and longest walk, the SA tensor's bytes, peak memory."""
+    from seqlib_tpu_torch import cli
+    from seqlib_tpu_torch.align.pairing import mark_supplementary
+    t_phase = time.time()
+    built = bam_out["aln"]
+    ref_fa = os.path.join(workdir, "ref.fa")
+    write_fasta(ref_fa, bam_contigs(genome))
+    fq = os.path.join(workdir, "reads.fq")
+    write_fastq(fq, reads[:CLI_ALIGN])
+    s1, s2, pnames = pairs
+    p1, p2 = (os.path.join(workdir, f"pairs_{k}.fq") for k in (1, 2))
+    write_fastq(p1, zip(pnames[:CLI_PAIRS], s1[:CLI_PAIRS]))
+    write_fastq(p2, zip(pnames[:CLI_PAIRS], s2[:CLI_PAIRS]))
+    w1, w2 = simulate_pairs([("win", genome[:ASM_WINDOW])], ASM_PAIRS,
+                            read_len=READ_BP, error_rate=0.005, seed=7)
+    win_fa = os.path.join(workdir, "window_reads.fa")
+    with open(win_fa, "w") as fh:
+        for i, u in enumerate(w1 + w2):
+            fh.write(f">r{i}\n{u.seq}\n")
+    out_bam = os.path.join(workdir, "cli.bam")
+    pair_bam = os.path.join(workdir, "cli_pairs.bam")
+    stream = [UnalignedSequence(n, s) for n, s in reads]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    # -- the path ----------------------------------------------------------
+    if cli.main(["index", ref_fa]) != 0:
+        raise AssertionError("cli: seqtools index failed")
+    t_index = time.time() - t0
+    t1 = time.time()
+    idx = FMIndex.load(ref_fa)
+    t_load = time.time() - t1
+    aln = BWAAligner(idx, device="cuda")
+    loaded_payloads, t_loaded, peak_loaded = stream_sam(aln, stream)
+    t1 = time.time()
+    if cli.main(["align", "-F", fq, "-G", ref_fa, "-b", "-o", out_bam]) != 0:
+        raise AssertionError("cli: seqtools align failed")
+    torch.cuda.synchronize()
+    t_cli = time.time() - t1
+    t1 = time.time()
+    if cli.main(["align", "-F", p1, "-2", p2, "-G", ref_fa, "-b", "-o",
+                 pair_bam]) != 0:
+        raise AssertionError("cli: seqtools align -2 failed")
+    torch.cuda.synchronize()
+    t_pairs = time.time() - t1
+    t1 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["fml", "-f", "-F", win_fa])
+    torch.cuda.synchronize()
+    t_fml = time.time() - t1
+    if rc != 0:
+        raise AssertionError("cli: seqtools fml failed")
+    wall = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    # ------------------------------------------------------------------------
+    for k in cuda_lib.MAIN_PATH:
+        if launches[k] <= 0:
+            raise AssertionError(f"cli: kernel {k} not launched")
+    log(f"cli: the path in {wall:.2f} s: seqtools index {t_index:.2f} s "
+        f"(FASTA read, build, write); FMIndex.load {t_load:.3f} s; "
+        f"{len(stream)} reads on the loaded index {t_loaded:.2f} s = "
+        f"{len(stream) / t_loaded:.0f} reads/s; seqtools align "
+        f"{CLI_ALIGN} reads {t_cli:.2f} s = {CLI_ALIGN / t_cli:.0f} reads/s;"
+        f" align -2 {CLI_PAIRS} pairs {t_pairs:.2f} s = "
+        f"{CLI_PAIRS / t_pairs:.0f} pairs/s; fml -f {t_fml:.2f} s; "
+        f"launches {launches} [{card}]")
+    # -- checks ------------------------------------------------------------
+    t1 = time.time()
+    FMIndex.construct(bam_contigs(genome))
+    t_build = time.time() - t1
+    t1 = time.time()
+    built.index.write(os.path.join(workdir, "again"))
+    t_write = time.time() - t1
+    for ext in (".pac", ".ann", ".amb", ".bwt", ".sa"):
+        with open(ref_fa + ext, "rb") as a, \
+                open(os.path.join(workdir, "again") + ext, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"cli: {ext} of seqtools index differs "
+                                     "from the constructed index's")
+    want = built.index
+    if idx.sa_full is not None or idx.sa_intv != 32 \
+            or idx.primary != want.primary \
+            or not all(np.array_equal(getattr(idx, k), getattr(want, k))
+                       for k in ("bwt_words", "cp_counts", "L2")) \
+            or not np.array_equal(idx.sa_samples[1:],
+                                  want.sa_full[::32][1:].astype(np.uint64)):
+        raise AssertionError("cli: the loaded index differs from the "
+                             "constructed one")
+    log(f"cli: seqtools index's five files == FMIndex.write of the "
+        f"constructed index; the loaded index's bwt_words, cp_counts, L2, "
+        f"primary == the constructed index's, sa_samples[1:] == "
+        f"sa_full[::32][1:]; no full SA. Host times: build "
+        f"(FMIndex.construct) {t_build:.2f} s, write {t_write:.2f} s, "
+        f"load {t_load:.3f} s [{card}]")
+    if loaded_payloads != bam_out["payloads"]:
+        raise AssertionError("cli: BAM records on the loaded index differ "
+                             "from the constructed index's")
+    n_rec = sum(len(decode_payload(p)) for p in loaded_payloads)
+    log(f"cli: {len(stream)} reads on the loaded index: BAM records == the "
+        f"bam phase's on the constructed index byte for byte ({n_rec} "
+        f"records)")
+    # loaded against constructed, in turns; then the locate alone
+    runs = {"loaded": [(t_loaded, peak_loaded)], "constructed": []}
+    for what, a in (("constructed", built), ("loaded", aln),
+                    ("constructed", built)):
+        _, t, peak = stream_sam(a, stream)
+        runs[what].append((t, peak))
+    for what, a in (("loaded", aln), ("constructed", built)):
+        with LocateTimer() as lt:
+            stream_sam(a, stream)
+        sa = a.fm.sa
+        resident = sum(t.numel() * t.element_size()
+                       for t in (a.fm.blocks, a.fm.sa, a.text_t))
+        log(f"cli: {what} index (sa_intv {a.fm.sa_intv}): "
+            + ", ".join(f"{len(stream) / t:.0f}" for t, _ in runs[what])
+            + f" reads/s (in turns); SA locate {np.mean(lt.ms):.2f} ms a "
+            f"batch (synchronised, {len(lt.ms)} batches; the longest walk "
+            f"{lt.longest} steps); SA on the card "
+            f"{sa.numel() * sa.element_size()} B of {resident} B resident "
+            f"(blocks, SA, text); the stream's peak device memory above "
+            f"what was resident "
+            + ", ".join(f"{p:.0f}" for _, p in runs[what])
+            + f" MiB [{card}]")
+    # GPU == CPU on the loaded index
+    k = CLI_CHECK
+    t1 = time.time()
+    seqs, names = [s for _, s in reads[:k]], [n for n, _ in reads[:k]]
+    g = aln.align_batch_bam(seqs, names, sam=True)
+    c = BWAAligner(idx, device="cpu").align_batch_bam(seqs, names, sam=True)
+    if g[0] != c[0] or not np.array_equal(g[1], c[1]):
+        raise AssertionError("cli: loaded index, GPU and CPU SAM differ")
+    log(f"cli: the first {k} reads on the loaded index: SAM on the card == "
+        f"on the CPU byte for byte (CPU run {time.time() - t1:.1f} s)")
+    # the CLI's BAM against the library
+    hdr = idx.header_from_index()
+    rd = BamReader(out_bam)
+    got = [r.to_sam(hdr) for r in iter(rd.next, None)]
+    rd.close()
+    lib = []
+    for i in range(0, CLI_ALIGN, 512):
+        part = reads[i:min(i + 512, CLI_ALIGN)]
+        for recs in aln.align_batch([s for _, s in part],
+                                    [n for n, _ in part]):
+            mark_supplementary(recs)
+            lib += [r.to_sam(hdr) for r in recs]
+    if got != lib:
+        raise AssertionError(f"cli: seqtools align's BAM ({len(got)} "
+                             f"records) differs from the library's "
+                             f"({len(lib)})")
+    log(f"cli: seqtools align's BAM == align_batch + mark_supplementary "
+        f"line for line ({len(got)} records)")
+    rd = BamReader(pair_bam)
+    prim: dict = {}
+    for r in iter(rd.next, None):
+        if not r.flag & (FSECONDARY | FSUPPLEMENTARY):
+            prim.setdefault(r.qname, []).append(r.proper_pair())
+    rd.close()
+    proper = sum(1 for v in prim.values() if len(v) == 2 and all(v))
+    log(f"cli: seqtools align -2: {proper}/{CLI_PAIRS} pairs proper "
+        f"({100 * proper / CLI_PAIRS:.2f}%)")
+    if proper < 0.98 * CLI_PAIRS:
+        raise AssertionError("cli: fewer than 98% of the pairs are proper")
+    fml = [ln for ln in buf.getvalue().splitlines() if not
+           ln.startswith(">")]
+    if fml != asm_contigs:
+        raise AssertionError(f"cli: seqtools fml gave {len(fml)} contig(s) "
+                             f"of {[len(x) for x in fml]} bp, not the "
+                             "assembly-local phase's")
+    log(f"cli: seqtools fml -f == the assembly-local phase's contig "
+        f"({len(fml[0])} bp)")
+    log(f"cli: K1 {launches['sw_extend']} and K2 {launches['smem_machine']}"
+        f" launches on the path; phase {time.time() - t_phase:.1f} s "
+        f"[{card}]")
     return launches
 
 
@@ -1417,7 +1690,7 @@ def assembly_local_phase(genome: str, card: str) -> dict:
         f"text == the CPU run's byte for byte (CPU run "
         f"{time.time() - t0:.1f} s)")
     walk_trace(wr, "assembly-local: one traced walk", card)
-    return launches
+    return launches, ctgs
 
 
 def pair_truths(names: list[str], genome: str) -> list[tuple[str, str]]:
@@ -1762,9 +2035,9 @@ def main() -> int:
     # ---- long reads, pairs, K1/K2 at long shapes -----------------------------
     t_new = time.time()
     long_launches, long_times = long_read_phase(aln, genome, card, load_ns)
-    pair_launches = paired_phase(aln, genome, card)
+    pair_launches, pairs = paired_phase(aln, genome, card)
     with tempfile.TemporaryDirectory() as workdir:
-        bam_launches = bam_phase(genome, reads, dev, card, workdir)
+        bam_launches, bam_out = bam_phase(genome, reads, dev, card, workdir)
     t0 = time.time()
     long_edge_phase(dev, rec.k2[0][0], genome, card)
     log(f"long edge phase: {time.time() - t0:.1f} s")
@@ -1781,12 +2054,20 @@ def main() -> int:
 
     # ---- BFC and assembly ----------------------------------------------------
     t0 = time.time()
-    asm_launches = assembly_local_phase(genome, card)
+    asm_launches, asm_contigs = assembly_local_phase(genome, card)
     log(f"assembly-local phase: {time.time() - t0:.1f} s")
+    t2 = time.time()
+    with tempfile.TemporaryDirectory() as workdir:
+        cli_launches = cli_phase(genome, reads, pairs, asm_contigs, bam_out,
+                                 card, workdir)
+    del bam_out
+    for k in cuda_lib.MAIN_PATH:
+        kernels[k]["by_path"]["cli"] = path_fields(cli_launches[k])
+    log(f"cli phase: {time.time() - t2:.1f} s [{card}]")
     t1 = time.time()
     bfc_launches = bfc_genome_phase(genome, card)
     log(f"bfc-genome phase: {time.time() - t1:.1f} s; both assembly phases "
-        f"{time.time() - t0:.1f} s [{card}]")
+        f"and the cli phase {time.time() - t0:.1f} s [{card}]")
     asm_launches = {k: asm_launches[k] + bfc_launches[k]
                     for k in cuda_lib.LAUNCHES}
 

@@ -2,19 +2,56 @@
 
 Short-read, long-read and paired alignment (seed, locate, chain, banded
 extension, dedup, global DP and traceback, native SAM/BAM emission) on
-an NVIDIA Hopper GPU, BFC and string-graph assembly, and SAM/BAM file
-I/O.  The package mirrors ``seqlib_tpu``'s layout (``core``, ``index``,
-``ops``, ``align``, ``assembly``, ``io``) so each module has a named
-counterpart.
+an NVIDIA Hopper GPU, BFC and string-graph assembly, SAM/BAM file I/O,
+bwa's index files and the ``seqtools`` command line
+(``python -m seqlib_tpu_torch.cli``).  The package mirrors
+``seqlib_tpu``'s layout (``core``, ``index``, ``ops``, ``align``,
+``assembly``, ``io``) so each module has a named counterpart.
 
 Entry points run on ``device="cuda"`` by default and raise when no GPU
 is present; pass ``device="cpu"`` to run every stage through the plain
 PyTorch versions of the kernels (the CPU tests do).
 
-Importing the package imports no submodule: ``from seqlib_tpu_torch.align
-import BWAAligner`` and ``from seqlib_tpu_torch.index import FMIndex``.
+Importing the package imports the record model (``core``) and nothing
+that builds a kernel or touches the GPU; ``seqlib_tpu_torch.BWAAligner``
+and the other subsystem names import their module on first use.
 """
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
 
+from .core import (BamHeader, BamRecord, Cigar, CigarField,  # noqa: E402
+                   GenomicRegion, HeaderSequence, UnalignedSequence)
 from .device import resolve_device  # noqa: E402
+
+_LAZY = {
+    "FMIndex": "seqlib_tpu_torch.index",
+    "BWAAligner": "seqlib_tpu_torch.align",
+    "AlignerOptions": "seqlib_tpu_torch.align",
+    "BamReader": "seqlib_tpu_torch.io",
+    "BamWriter": "seqlib_tpu_torch.io",
+    "FastqReader": "seqlib_tpu_torch.io",
+    "RefGenome": "seqlib_tpu_torch.io",
+    "BFC": "seqlib_tpu_torch.assembly",
+    "FermiAssembler": "seqlib_tpu_torch.assembly",
+}
+
+# exported by the JAX package, waiting for their modules here
+_NOT_PORTED = ("GRC", "GenomicRegionCollection", "ReadFilterCollection",
+               "SeqPlot", "BamStats", "STCoverage")
+
+
+def __getattr__(name):
+    """Subsystems on first use: ``seqlib_tpu_torch.BWAAligner`` etc."""
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    if name in _NOT_PORTED:
+        raise AttributeError(
+            f"seqlib_tpu_torch.{name} is not ported yet (intervals, filters,"
+            " stats and plots: ROADMAP.md section 1, item 5)")
+    raise AttributeError(name)
+
+
+__all__ = ["BamHeader", "BamRecord", "Cigar", "CigarField", "GenomicRegion",
+           "HeaderSequence", "UnalignedSequence", "resolve_device",
+           "__version__", *_LAZY]

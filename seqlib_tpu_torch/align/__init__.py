@@ -1,4 +1,8 @@
 """Single-end BWA-MEM-style alignment (counterpart of seqlib_tpu.align)."""
 
-from .aligner import BWAAligner, FusedOverflowError  # noqa: F401
-from .options import AlignerOptions  # noqa: F401
+from .aligner import AlnReg, BWAAligner, FusedOverflowError
+from .chain import Chain, chain_seeds, filter_chains
+from .options import AlignerOptions
+
+__all__ = ["BWAAligner", "AlnReg", "Chain", "chain_seeds", "filter_chains",
+           "AlignerOptions", "FusedOverflowError"]

@@ -823,14 +823,10 @@ class BWAAligner:
         return self._payload_batch(chunk, enc, lens, res, hardclip,
                                    keep_sec_frac, max_secondary, sam)
 
-    def align_stream_bam(self, read_iter, batch_size: int = 4096,
-                         hardclip: bool = False, keep_sec_frac: float = 0.9,
-                         max_secondary: int = 10, workers: int = 2,
-                         sam: bool = False):
-        """Streaming alignment: yields (chunk, payload, counts) per batch
-        of ``batch_size`` reads (objects with ``.name`` and ``.seq``), in
-        order.  Host record emission of one batch runs on a small
-        thread pool while the next batch runs on the device."""
+    def _stream(self, read_iter, batch_size: int, workers: int, finish):
+        """Batches of ``batch_size`` reads: each dispatched to the device
+        in turn, ``finish(chunk, enc, lens, res)`` on a small thread pool
+        while the next batch runs; yields finish's results in order."""
 
         def batches():
             buf = []
@@ -842,23 +838,49 @@ class BWAAligner:
             if buf:
                 yield buf
 
-        def finish(args):
-            chunk, enc, lens, res = args
-            payload, counts = self._payload_batch(
-                chunk, enc, lens, res, hardclip, keep_sec_frac,
-                max_secondary, sam)
-            return chunk, payload, counts
-
         with _fut.ThreadPoolExecutor(max(workers, 1)) as pool:
             inflight: list = []
             for chunk in batches():
                 enc, lens = self._encode_batch([r.seq for r in chunk])
                 res = self._dispatch_full(enc, lens)
-                inflight.append(pool.submit(finish, (chunk, enc, lens, res)))
+                inflight.append(pool.submit(finish, chunk, enc, lens, res))
                 while len(inflight) >= max(workers, 1) + 1:
                     yield inflight.pop(0).result()
             for f in inflight:
                 yield f.result()
+
+    def align_stream_bam(self, read_iter, batch_size: int = 4096,
+                         hardclip: bool = False, keep_sec_frac: float = 0.9,
+                         max_secondary: int = 10, workers: int = 2,
+                         sam: bool = False):
+        """Streaming alignment: yields (chunk, payload, counts) per batch
+        of ``batch_size`` reads (objects with ``.name`` and ``.seq``), in
+        order.  Host record emission of one batch runs on a small
+        thread pool while the next batch runs on the device."""
+
+        def finish(chunk, enc, lens, res):
+            payload, counts = self._payload_batch(
+                chunk, enc, lens, res, hardclip, keep_sec_frac,
+                max_secondary, sam)
+            return chunk, payload, counts
+
+        yield from self._stream(read_iter, batch_size, workers, finish)
+
+    def align_stream(self, read_iter, batch_size: int = 4096,
+                     hardclip: bool = False, keep_sec_frac: float = 0.9,
+                     max_secondary: int = 10, workers: int = 2):
+        """Streaming alignment: yields (read, records) for each read of
+        ``read_iter`` (objects with ``.name`` and ``.seq``), in input
+        order, the records as ``align_batch`` gives them.  Each batch's
+        records are built on a small thread pool while the next batch
+        runs on the device."""
+
+        def finish(chunk, enc, lens, res):
+            return list(self._finish_batch(chunk, enc, lens, res, hardclip,
+                                           keep_sec_frac, max_secondary))
+
+        for pairs in self._stream(read_iter, batch_size, workers, finish):
+            yield from pairs
 
     # ------------------------------------------------------------------
     # object API: BamRecord lists

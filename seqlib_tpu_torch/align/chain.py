@@ -1,5 +1,6 @@
-"""Host seed chaining for the long-read path (counterpart of
-seqlib_tpu/align/chain.py).
+"""Host seed chaining (counterpart of seqlib_tpu/align/chain.py):
+``chain_batch`` for the long-read path, and the per-read
+``chain_seeds`` / ``filter_chains`` of the library surface.
 
 Seed occurrences (query begin/end, text position in 2L space) are
 grouped into colinear chains in int64 numpy, with no length caps: the
@@ -40,6 +41,52 @@ class Chain:
     def anchor(self) -> tuple[int, int, int]:
         """Longest seed (ties: leftmost)."""
         return max(self.seeds, key=lambda s: (s[1], -s[0]))
+
+
+def chain_seeds(occs: list[tuple[int, int, int]], l_pac: int,
+                max_chain_gap: int = 10000, band: int = 100
+                ) -> list[Chain]:
+    """Group seed occurrences (qbeg, qend, rbeg in 2L space) into chains,
+    one seed at a time in (rbeg, qbeg) order.
+
+    A seed joins the first chain on its strand that it is colinear with:
+    it starts at or after the chain's start in query and text, the gaps
+    to the chain's end differ by at most ``band``, both are under
+    ``max_chain_gap``, and it does not reach back past its own length.
+    Otherwise it starts a chain."""
+    chains: list[Chain] = []
+    for qb, qe, rb in sorted(occs, key=lambda s: (s[2], s[0])):
+        slen = qe - qb
+        for ch in chains:
+            if (rb >= l_pac) != (ch.rbeg >= l_pac):
+                continue
+            dq = qb - ch.qend
+            dr = rb - ch.rend
+            if (qb >= ch.qbeg and rb >= ch.rbeg
+                    and dr - dq <= band and dq - dr <= band
+                    and dr < max_chain_gap and dq < max_chain_gap
+                    and dq > -slen):
+                ch.seeds.append((qb, slen, rb))
+                ch.qend = max(ch.qend, qe)
+                ch.rend = max(ch.rend, rb + slen)
+                break
+        else:
+            chains.append(Chain(qb, qe, rb, rb + slen, [(qb, slen, rb)]))
+    return chains
+
+
+def filter_chains(chains: list[Chain], drop_ratio: float = 0.5,
+                  min_weight: int = 0, max_keep: int = 8) -> list[Chain]:
+    """bwa ``mem_chain_flt``-style filter: by weight, heaviest first
+    (ties in input order), those of weight >= drop_ratio x the best and
+    >= min_weight, at most max_keep."""
+    if not chains:
+        return []
+    chains = sorted(chains, key=lambda c: -c.weight)
+    best = chains[0].weight
+    kept = [c for c in chains
+            if c.weight >= drop_ratio * best and c.weight >= min_weight]
+    return kept[:max_keep]
 
 
 def chain_batch(rid: np.ndarray, qb: np.ndarray, qe: np.ndarray,

@@ -1,5 +1,11 @@
-"""Reference packing and FM-index construction (counterpart of
-seqlib_tpu.index)."""
+"""Reference packing, FM-index construction and bwa's index files
+(counterpart of seqlib_tpu.index)."""
 
-from .fmindex import FMIndex  # noqa: F401
-from .pack import both_strands, pack_sequences  # noqa: F401
+from .bwa_files import OCC_INTERVAL, SA_INTERVAL
+from .fmindex import FMIndex
+from .pack import (Lrand48, PackedReference, both_strands, codes_from_pac,
+                   pac_bytes, pack_sequences)
+
+__all__ = ["FMIndex", "Lrand48", "PackedReference", "both_strands",
+           "pack_sequences", "pac_bytes", "codes_from_pac",
+           "OCC_INTERVAL", "SA_INTERVAL"]

@@ -37,6 +37,8 @@ class Annotation:
     offset: int
     length: int
     n_amb: int = 0
+    gi: int = 0
+    anno: str = "(null)"
 
 
 @dataclass
@@ -91,6 +93,29 @@ def pack_sequences(seqs: list[tuple[str, str]], seed: int = 11
         parts.append(codes)
     return PackedReference(np.concatenate(parts) if parts
                            else np.zeros(0, np.uint8), anns, holes, seed)
+
+
+def pac_bytes(codes: np.ndarray) -> bytes:
+    """nt4 codes (all < 4) -> bwa .pac byte layout (base i in bits
+    ``(~i & 3) * 2`` of byte ``i >> 2``: first base in the top 2 bits)."""
+    n = codes.size
+    padded = np.zeros(((n + 3) // 4) * 4, dtype=np.uint8)
+    padded[:n] = codes
+    q = padded.reshape(-1, 4)
+    return ((q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2)
+            | q[:, 3]).astype(np.uint8).tobytes()
+
+
+def codes_from_pac(pac: bytes | np.ndarray, l_pac: int) -> np.ndarray:
+    """Inverse of :func:`pac_bytes`."""
+    arr = np.frombuffer(pac, dtype=np.uint8) if isinstance(pac, bytes) \
+        else np.asarray(pac, dtype=np.uint8)
+    out = np.empty(arr.size * 4, dtype=np.uint8)
+    out[0::4] = (arr >> 6) & 3
+    out[1::4] = (arr >> 4) & 3
+    out[2::4] = (arr >> 2) & 3
+    out[3::4] = arr & 3
+    return out[:l_pac]
 
 
 def both_strands(codes: np.ndarray) -> np.ndarray:

@@ -8,6 +8,11 @@ an int32 tensor: the CUDA kernel reads them as uint32, the plain
 PyTorch functions widen the gathered rows to int64 (PyTorch has no
 popcount and thin uint32 support) and count with a SWAR popcount.
 
+``DeviceFMIndex.sa`` is the full suffix array of a constructed index
+(``sa_intv`` 1: a locate is one gather) or the rank-sampled one of an
+index loaded from bwa's files (``sa_intv`` 32: a locate walks LF to a
+sample, in plain PyTorch, as the JAX package does in XLA).
+
 ``_smem_machine`` is the plain version of kernel K2
 (``csrc/smem_machine.cu``); ``smem_collect`` and ``smem_reseed`` reach
 it through ``smem_machine``, which launches the kernel
@@ -33,12 +38,13 @@ class DeviceFMIndex:
     """FM-index arrays resident on one device."""
 
     blocks: torch.Tensor     # int32 [nb+1, 12], bits of uint32 values
-    sa: torch.Tensor         # int64 [seq_len+1], full SA (sa[0] = 0)
+    sa: torch.Tensor         # int64 SA of ranks 0, sa_intv, ... (sa[0] = 0)
     L2: torch.Tensor         # int64 [5]
     L2_host: tuple           # the same five counts as Python ints
     primary: int
     seq_len: int
     l_pac: int
+    sa_intv: int = 1         # 1: the full SA; else sampled by rank
 
     @property
     def device(self) -> torch.device:
@@ -46,7 +52,10 @@ class DeviceFMIndex:
 
     @classmethod
     def from_host(cls, idx, device="cuda") -> "DeviceFMIndex":
-        """Upload a host :class:`~seqlib_tpu_torch.index.FMIndex`."""
+        """Upload a host :class:`~seqlib_tpu_torch.index.FMIndex`: its
+        full SA with ``sa_intv`` 1 when it has one (a constructed
+        index), else its samples with the file's interval (a loaded
+        one)."""
         dev = resolve_device(device)
         if idx.seq_len >= 2**31:
             raise NotImplementedError(
@@ -55,7 +64,10 @@ class DeviceFMIndex:
         blocks = np.zeros((nb + 1, 12), np.uint32)
         blocks[:, :4] = idx.cp_counts.astype(np.uint32)[:nb + 1]
         blocks[:nb, 4:] = idx.bwt_words
-        sa = idx.sa_full.astype(np.int64).copy()
+        if idx.sa_full is not None:
+            sa, sa_intv = idx.sa_full.astype(np.int64), 1
+        else:
+            sa, sa_intv = idx.sa_samples.astype(np.int64), int(idx.sa_intv)
         sa[0] = 0
         L2 = np.asarray(idx.L2, np.int64)
         return cls(
@@ -64,7 +76,7 @@ class DeviceFMIndex:
             L2=torch.from_numpy(L2.copy()).to(dev),
             L2_host=tuple(int(v) for v in L2),
             primary=int(idx.primary), seq_len=int(idx.seq_len),
-            l_pac=int(idx.l_pac))
+            l_pac=int(idx.l_pac), sa_intv=sa_intv)
 
 
 # ---------------------------------------------------------------------------
@@ -167,14 +179,82 @@ def _take4(a4: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# SA locate (full SA resident: one gather)
+# SA locate: one gather on the full SA, an LF walk on the samples
 # ---------------------------------------------------------------------------
 
-def sa_lookup(fm: DeviceFMIndex, ranks: torch.Tensor) -> torch.Tensor:
-    """Text positions for ranks (-1 where rank < 0)."""
-    r0 = torch.clamp(ranks.to(torch.int64), min=0)
-    pos = torch.where(r0 == fm.primary, torch.zeros_like(r0), fm.sa[r0])
-    return torch.where(ranks < 0, torch.full_like(pos, -1), pos)
+# LF steps between two tests of "every lane done" (each test is a host
+# sync); a lane that is done stays frozen, so this changes no result
+WALK_CHECK = 8
+
+
+def bwt_char(fm: DeviceFMIndex, p: torch.Tensor) -> torch.Tensor:
+    """Stored-BWT code at BWT position p (already sentinel-adjusted)."""
+    p = p.to(torch.int64)
+    word = fm.blocks[p >> 7, 4 + ((p >> 4) & 7)].to(torch.int64) & M32
+    return (word >> (2 * (15 - (p & 15)))) & 3
+
+
+def _lf(fm: DeviceFMIndex, r: torch.Tensor) -> torch.Tensor:
+    """LF(r) = L2[c] + 1 + rank_full(c, r), c the BWT code of rank r:
+    ``bwt_char`` and ``rank_full`` read the same block row, so one
+    gather serves both."""
+    p = r - (r > fm.primary).to(torch.int64)
+    row = _rows(fm, p)
+    word = row[:, 4:].gather(1, ((p >> 4) & 7)[:, None])[:, 0]
+    c = (word >> (2 * (15 - (p & 15)))) & 3
+    occ = row.gather(1, c[:, None])[:, 0] \
+        + _inblock_count(row[:, 4:], c, p & 127)
+    return fm.L2[c] + 1 + occ
+
+
+def sa_lookup(fm: DeviceFMIndex, ranks: torch.Tensor,
+              return_steps: bool = False):
+    """Text positions for ranks (-1 where rank < 0).
+
+    On a sampled SA (samples by rank: ``isa % sa_intv == 0``) each valid
+    rank walks LF until it is a multiple of ``sa_intv`` or is
+    ``primary`` (SA 0), and its position is the sample plus the steps
+    taken.  Only the valid ranks walk, compacted, and lanes that are
+    done leave the walk at each test.  As in the JAX package the walk
+    stops after ``64 * sa_intv`` steps; a lane still walking then gets
+    ``sa[r // sa_intv] + steps``.  With ``return_steps`` also returns
+    each rank's steps (0 on the full SA)."""
+    ranks = ranks.to(torch.int64)
+    r0 = torch.clamp(ranks, min=0)
+    if fm.sa_intv == 1:
+        pos = torch.where(r0 == fm.primary, 0, fm.sa[r0])
+        pos = torch.where(ranks < 0, -1, pos)
+        return (pos, torch.zeros_like(pos)) if return_steps else pos
+    intv, cap = fm.sa_intv, 64 * fm.sa_intv
+    flat = ranks.reshape(-1)
+    pos = torch.full_like(flat, -1)
+    steps_out = torch.zeros_like(flat)
+    lane = torch.nonzero(flat >= 0)[:, 0]
+    r = flat[lane]
+    steps = torch.zeros_like(r)
+    done = (r % intv == 0) | (r == fm.primary)
+    it = 0
+    while True:
+        if it >= cap:
+            done = torch.ones_like(done)
+        sel = torch.nonzero(done)[:, 0]
+        rs, ss = r[sel], steps[sel]
+        pos[lane[sel]] = torch.where(rs == fm.primary, 0,
+                                     fm.sa[rs // intv]) + ss
+        steps_out[lane[sel]] = ss
+        keep = torch.nonzero(~done)[:, 0]
+        if keep.numel() == 0:
+            break
+        lane, r, steps = lane[keep], r[keep], steps[keep]
+        done = torch.zeros_like(keep, dtype=torch.bool)
+        n = min(WALK_CHECK, cap - it)
+        for _ in range(n):
+            r = torch.where(done, r, _lf(fm, r))
+            steps = steps + (~done).to(torch.int64)
+            done = done | (r % intv == 0) | (r == fm.primary)
+        it += n
+    pos, steps_out = pos.reshape(ranks.shape), steps_out.reshape(ranks.shape)
+    return (pos, steps_out) if return_steps else pos
 
 
 # ---------------------------------------------------------------------------

@@ -218,6 +218,49 @@ def test_load_chase_follows_the_chain(cuda):
     assert cuda_lib.LAUNCHES["smem_machine"] == n0
 
 
+@pytest.fixture(scope="module")
+def loaded_index(genome, tmp_path_factory):
+    """The genome's index written as bwa's files and loaded back: a
+    sampled SA (interval 32), no full SA."""
+    prefix = str(tmp_path_factory.mktemp("bwa_index") / "ref.fa")
+    FMIndex.construct([("c1", genome[:120_000]),
+                       ("c2", "N" * 50 + genome[120_050:])]).write(prefix)
+    idx = FMIndex.load(prefix)
+    assert idx.sa_full is None and idx.sa_intv == 32
+    return idx
+
+
+def test_sa_lookup_walk_gpu_equals_cpu(cuda, loaded_index):
+    """The LF walk on the card equals the CPU's on 100,000 random ranks
+    (-1, 0 and primary among them)."""
+    from seqlib_tpu_torch.ops.fm import sa_lookup
+    idx = loaded_index
+    ranks = np.random.default_rng(12).integers(-1, idx.seq_len + 1, 100_000)
+    ranks[:3] = (-1, 0, idx.primary)
+    r = torch.from_numpy(ranks)
+    g, gs = sa_lookup(DeviceFMIndex.from_host(idx, device=cuda), r.to(cuda),
+                      return_steps=True)
+    c, cs = sa_lookup(DeviceFMIndex.from_host(idx, device="cpu"), r,
+                      return_steps=True)
+    assert torch.equal(g.cpu(), c) and torch.equal(gs.cpu(), cs)
+    assert int(cs.max()) > 32
+
+
+def test_loaded_index_gpu_equals_cpu(cuda, genome, loaded_index):
+    """512 reads aligned on a loaded index: SAM bytes on the card == on
+    the CPU."""
+    corpus = simulate_reads(genome, 512, seed=15)
+    seqs, names = [s for _, s in corpus], [n for n, _ in corpus]
+    cuda_lib.reset_launches()
+    g = BWAAligner(loaded_index, device=cuda).align_batch_bam(seqs, names,
+                                                              sam=True)
+    assert all(cuda_lib.LAUNCHES[k] > 0 for k in cuda_lib.MAIN_PATH)
+    c = BWAAligner(loaded_index, device="cpu").align_batch_bam(seqs, names,
+                                                               sam=True)
+    assert g[0] == c[0]
+    assert np.array_equal(g[1], c[1])
+
+
 def test_aligner_gpu_equals_cpu(cuda, genome):
     corpus = simulate_reads(genome, 200, seed=5)
     idx = FMIndex.construct([("rep1", genome)])

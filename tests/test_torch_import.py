@@ -69,7 +69,9 @@ def test_port_imports_no_jax_nor_jax_package():
               "seqlib_tpu_torch.io.bam_writer",
               "seqlib_tpu_torch.io.threadpool",
               "seqlib_tpu_torch.io.refgenome",
-              "seqlib_tpu_torch.io.fast_bam"):
+              "seqlib_tpu_torch.io.fast_bam",
+              "seqlib_tpu_torch.index.bwa_files", "seqlib_tpu_torch.cli",
+              "seqlib_tpu_torch.profiling", "seqlib_tpu_torch.utils"):
         assert m in res["mods"], m
 
 
