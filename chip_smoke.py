@@ -103,7 +103,25 @@ last line is printed):
    write and load times, reads/s loaded against constructed in turns,
    the locate's ms a batch and longest walk, the SA's bytes on the card
    and peak memory;
-15. bfc-genome: BFC on the whole reference at 30x (460,000 pairs of 2 x
+15. records: the bam phase's sorted BAM (the main reads aligned on the
+   card) through ``BamWriter(CRAM)`` with the reference attached (RR=1)
+   and without, ``build_index`` (.crai), ``BamReader`` over each,
+   RECORDS_REGIONS of the bam phase's regions through the .crai (each
+   decodes whole containers in Python: 0.5-0.8 s), ``seqtools align
+   -C`` of the cli phase's 4,096 reads on the card, ``GRC`` tiles of the
+   header and every alignment's overlaps (``count_overlaps_batch``), a
+   ``ReadFilterCollection`` JSON script (a BED region with MAPQ and clip
+   ranges and a subsample rate, a motif file), ``STCoverage`` of chr1's
+   first COV_WINDOW bases, ``BamStats`` and a ``SeqPlot`` of one 1 kb
+   window, counters reset just before and read just after: each CRAM
+   decodes to the BAM's records field for field; each region == the
+   BAM's answer; the CLI's CRAM == the cli phase's BAM record for
+   record; the overlap counts == a brute-force count; each filter
+   decision == the rules' predicates; the coverage and its bedgraph ==
+   a numpy difference-array coverage; the stats count every record;
+   every read inside the plotted window drawn once; records/s written
+   and read, bytes a record, ms a query, the times of each step;
+16. bfc-genome: BFC on the whole reference at 30x (460,000 pairs of 2 x
    150 bp, error rate 0.005) on the card, counters reset just before and
    read just after: the card's k-mer table equals the port's CPU count,
    4,096 walked rows equal a CPU walk with the card's table, and the
@@ -111,7 +129,7 @@ last line is printed):
    ``before + 0.5 (n - before)`` and 90%; corrected reads/s and
    bases/s, stage times, unique k-mers, kcov, min_cov, peak memory, and
    one traced walk;
-16. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
+17. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
    probe line (clocks a scheduler per warp instruction of the s16x2 and
    int32 add-max, PRMT, and the s16x2 forms' edge semantics); then each
    kernel held against its plain version on the card, tolerance 0, on
@@ -124,11 +142,11 @@ last line is printed):
    per-call wrapper time, as for K1 and K2, beside the earlier layouts'
    times (PERF.md), and each variant's longest lane alone: rows,
    pipeline steps, ns a step), whose launches they report;
-17. one JSON line of all five kernels' numbers, each with its launches
+18. one JSON line of all five kernels' numbers, each with its launches
    on each path it has (``by_path``: K1 and K2 main, overflow, long,
-   paired, bam, cli; K3-K5 bench; all five assembly, where no TPU-kernel
-   counterpart runs), K1's and K2's long path with their mean device ms
-   and bound.
+   paired, bam, cli, records; K3-K5 bench; all five assembly, where no
+   TPU-kernel counterpart runs), K1's and K2's long path with their mean
+   device ms and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -164,8 +182,8 @@ from seqlib_tpu_torch.bench_sw import (band_cells_needed, cuda_ms,
                                        k1_long_inputs, max_abs_diff, roof_ms,
                                        smi_name_power)
 from seqlib_tpu_torch.index import FMIndex
-from seqlib_tpu_torch.io import BAM, BamReader, BamWriter, BgzfReader, \
-    BgzfWriter
+from seqlib_tpu_torch.io import BAM, CRAM, BamReader, BamWriter, \
+    BgzfReader, BgzfWriter, RefGenome
 from seqlib_tpu_torch.io.bam import encode_record, read_bam_header, \
     read_record
 from seqlib_tpu_torch.io.fast_bam import FastBamReader, fetch_region
@@ -194,6 +212,9 @@ BAM_REGIONS = 200
 CLI_ALIGN = 4096                   # cli phase: reads through `seqtools align`
 CLI_PAIRS = 1024                   # pairs through `seqtools align -2`
 CLI_CHECK = 512                    # reads held GPU against CPU, loaded index
+RECORDS_REGIONS = 20               # records: the bam phase's first regions
+COV_WINDOW = 200_000               # on the CRAM (each decodes its containers)
+PLOT_WINDOW = 1_000
 # K1 at long shapes (Lq, w, zdrop): across the 4096 rows of the JAX
 # package's packed tie-break, and four lanes' codes across 48 KB (Lq
 # 6200) and 227 KB (Lq 30,000) of shared memory; K2 at read lengths
@@ -1516,6 +1537,326 @@ def cli_phase(genome: str, reads, pairs, asm_contigs, bam_out: dict,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# records: CRAM, intervals, filters, statistics and plots on the aligned reads
+# ---------------------------------------------------------------------------
+
+def record_key(r) -> tuple:
+    """Every field a record carries, tags as a dict (CRAM stores a
+    record's tags in sorted order)."""
+    return (r.qname, r.flag, r.tid, r.pos, r.mapq, str(r.cigar), r.seq,
+            None if r.qual is None else r.qual.tolist(), r.mtid, r.mpos,
+            r.isize, dict(r.tags))
+
+
+def write_cram(path: str, hdr, recs, reference=None) -> float:
+    """``BamWriter(CRAM)`` (reference-based with ``reference``) and
+    ``build_index``: seconds."""
+    t0 = time.time()
+    w = BamWriter(CRAM)
+    if reference is not None:
+        w.set_cram_reference(reference)
+    if not w.open(path):
+        raise AssertionError(f"records: cannot open {path}")
+    w.set_header(hdr)
+    w.write_header()
+    for r in recs:
+        w.write_record(r)
+    w.close()
+    if not w.build_index():
+        raise AssertionError(f"records: build_index of {path} failed")
+    return time.time() - t0
+
+
+def read_all(path: str, reference=None) -> tuple[list, float]:
+    t0 = time.time()
+    rd = BamReader()
+    if reference is not None:
+        rd.set_cram_reference(reference)
+    if not rd.open(path):
+        raise AssertionError(f"records: cannot open {path}")
+    recs = list(rd)
+    rd.close()
+    return recs, time.time() - t0
+
+
+def query(path: str, regions, reference=None) -> tuple[list, float]:
+    """Each region through ``BamReader.set_region``: its records' keys."""
+    rd = BamReader()
+    if reference is not None:
+        rd.set_cram_reference(reference)
+    rd.open(path)
+    t0 = time.time()
+    out = []
+    for tid, p1, p2 in regions:
+        if not rd.set_region(GenomicRegion(tid, p1, p2)):
+            raise AssertionError(f"records: set_region failed on {path}")
+        out.append([record_key(r) for r in rd])
+    rd.close()
+    return out, time.time() - t0
+
+
+def bedgraph_track(text: str, pos1: int, size: int) -> np.ndarray:
+    """A bedgraph's runs back to a dense track over [pos1, pos1 + size);
+    the runs must be contiguous.  Its last position stays -1: the last
+    run stops one short of the track's end (STCoverage's rule)."""
+    v = np.full(size, -1, np.int64)
+    at = pos1
+    for line in text.splitlines():
+        _, s, e, val = line.split("\t")
+        s, e = int(s), int(e)
+        if s != at:
+            raise AssertionError(f"records: bedgraph gap at {at}")
+        v[s - pos1:e - pos1] = int(val)
+        at = e
+    return v
+
+
+def records_phase(card: str, workdir: str) -> dict:
+    """What a user of this slice runs on the bam phase's sorted BAM
+    (the main reads aligned on the card) and the cli phase's ref.fa and
+    4,096-read FASTQ, counters reset just before and read just after:
+    ``BamWriter(CRAM)`` with the reference attached (RR=1) and without,
+    ``build_index`` -> ``BamReader`` over each; RECORDS_REGIONS of the
+    bam phase's regions through the .crai; ``seqtools align -C`` on the
+    card; the header tiled by ``GRC`` and every alignment's overlaps
+    counted; a ``ReadFilterCollection`` JSON script (a BED region, MAPQ
+    and clip ranges, a motif file, a subsample rate); ``STCoverage`` of
+    chr1's first COV_WINDOW bases, ``BamStats``, one ``SeqPlot`` window.
+    Checks: each CRAM decodes to the BAM's records field for field;
+    each region equals the BAM's answer; the CLI's CRAM decodes to the
+    cli phase's BAM; the overlap counts equal a brute-force count; each
+    filter decision equals the rules' direct predicates; the coverage
+    and its bedgraph equal a numpy difference-array coverage; the stats
+    count every record; every read inside the plotted window is drawn
+    once, and no other."""
+    from seqlib_tpu_torch import cli
+    from seqlib_tpu_torch.filters import (ReadFilterCollection, wang_hash,
+                                          x31_hash)
+    from seqlib_tpu_torch.intervals import GRC
+    from seqlib_tpu_torch.plot import SeqPlot
+    from seqlib_tpu_torch.stats import BamStats, STCoverage
+    t_phase = time.time()
+    sorted_bam = os.path.join(workdir, "out.sorted.bam")
+    ref_fa = os.path.join(workdir, "ref.fa")
+    fq = os.path.join(workdir, "reads.fq")
+    rr1 = os.path.join(workdir, "out.rr1.cram")
+    rr0 = os.path.join(workdir, "out.rr0.cram")
+    cli_cram = os.path.join(workdir, "cli.cram")
+    bam_recs, t_bam = read_all(sorted_bam)
+    rd = BamReader(sorted_bam)
+    hdr = rd.header()
+    rd.close()
+    n = len(bam_recs)
+    # the filter's inputs: a BED of 20 regions, 8 k-mers of the reference
+    rng = np.random.default_rng(53)
+    bed = os.path.join(workdir, "filter.bed")
+    bed_rows = []
+    for _ in range(20):
+        tid = int(rng.integers(0, hdr.num_sequences()))
+        ln = hdr.get_sequence_length(tid)
+        s = int(rng.integers(0, ln - 60_000))
+        bed_rows.append((tid, s, s + int(rng.integers(1_000, 60_000))))
+    with open(bed, "w") as fh:
+        fh.write("# chrom start end\n")
+        fh.writelines(f"{hdr.id2name(t)}\t{s}\t{e}\n" for t, s, e in bed_rows)
+    chr1 = RefGenome(ref_fa).query_region(
+        hdr.id2name(0), 0, min(hdr.get_sequence_length(0), 1_000_000) - 1)
+    motifs = []
+    while len(motifs) < 8:
+        p = int(rng.integers(0, len(chr1) - 8))
+        if "N" not in chr1[p:p + 8]:
+            motifs.append(chr1[p:p + 8])
+    motif_file = os.path.join(workdir, "motifs.txt")
+    with open(motif_file, "w") as fh:
+        fh.write("\n".join(motifs) + "\n")
+    script = json.dumps({
+        "bed": {"region": bed, "rules": [{"mapq": [20, 60],
+                                          "subsample": 0.5},
+                                         {"clip": [10, 1000]}]},
+        "motif": {"region": "WG", "rules": [{"motif": motif_file}]}})
+    regions = region_set(hdr, BAM_REGIONS, seed=37)[:RECORDS_REGIONS]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    # -- the path ----------------------------------------------------------
+    t_w1 = write_cram(rr1, hdr, bam_recs, reference=ref_fa)
+    t_w0 = write_cram(rr0, hdr, bam_recs)
+    got1, t_r1 = read_all(rr1, reference=ref_fa)
+    got0, t_r0 = read_all(rr0)
+    cram_regions, t_regions = query(rr1, regions, reference=ref_fa)
+    t1 = time.time()
+    if cli.main(["align", "-F", fq, "-G", ref_fa, "-C", "-o", cli_cram,
+                 "--device", "cuda"]) != 0:
+        raise AssertionError("records: seqtools align -C failed")
+    torch.cuda.synchronize()
+    t_cli = time.time() - t1
+    t1 = time.time()
+    tiles = GRC(width=10_000, ovlp=1_000, header=hdr)
+    tiles.create_tree_map()
+    q_tid = np.array([r.tid for r in bam_recs], np.int64)
+    q1 = np.array([r.pos for r in bam_recs], np.int64)
+    q2 = np.array([r.position_end() for r in bam_recs], np.int64)
+    counts = tiles.count_overlaps_batch(q_tid, q1, q2)
+    t_tiles = time.time() - t1
+    t1 = time.time()
+    rfc = ReadFilterCollection(script, hdr)
+    kept = [rfc.is_valid(r) for r in bam_recs]
+    t_filter = time.time() - t1
+    t1 = time.time()
+    cov = STCoverage(GenomicRegion(0, 0, COV_WINDOW - 1))
+    fed = [r for r in bam_recs if r.tid == 0 and r.pos < COV_WINDOW]
+    for r in fed:
+        cov.add_read(r)
+    graph = cov.to_bedgraph(hdr)
+    stats = BamStats()
+    for r in bam_recs:
+        stats.add_read(r)
+    table = repr(stats)
+    t_stats = time.time() - t1
+    t1 = time.time()
+    starts = np.array([r.pos for r in fed])
+    w0 = int(starts[len(starts) // 2])
+    view = GenomicRegion(0, w0, w0 + PLOT_WINDOW)
+    plot = SeqPlot()
+    plot.set_view(view)
+    drawn = plot.plot_alignment_records(bam_recs)
+    t_plot = time.time() - t1
+    wall = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    # ------------------------------------------------------------------------
+    for k in cuda_lib.MAIN_PATH:
+        if launches[k] <= 0:
+            raise AssertionError(f"records: kernel {k} not launched")
+    log(f"records: the path in {wall:.2f} s on {n} records of the sorted BAM "
+        f"(read in {t_bam:.2f} s); launches {launches} [{card}]")
+    # 1. CRAM of the aligned reads
+    want = [record_key(r) for r in bam_recs]
+    for what, got in (("RR=1", got1), ("reference-free", got0)):
+        if [record_key(r) for r in got] != want:
+            bad = next((i for i, (a, b) in enumerate(zip(got, bam_recs))
+                        if record_key(a) != record_key(b)), -1)
+            raise AssertionError(f"records: the {what} CRAM decodes to other "
+                                 f"records than the BAM's (record {bad}; "
+                                 f"{len(got)} vs {n})")
+    size_bam = os.path.getsize(sorted_bam)
+    log(f"records: CRAM RR=1 and reference-free decode through BamReader to "
+        f"the sorted BAM's {n} records field for field (qname, flag, tid, "
+        f"pos, mapq, CIGAR, seq, qual, mate fields, tags)")
+    for what, path, tw, tr in (("RR=1", rr1, t_w1, t_r1),
+                               ("reference-free", rr0, t_w0, t_r0)):
+        size = os.path.getsize(path)
+        log(f"records: CRAM {what}: write + .crai {tw:.2f} s = "
+            f"{n / tw:.0f} records/s, read {tr:.2f} s = {n / tr:.0f} "
+            f"records/s; {size / n:.1f} B a record against the BAM's "
+            f"{size_bam / n:.1f} ({size} and {size_bam} B) [{card}]")
+    # 2. region queries
+    bam_regions, t_bam_regions = query(sorted_bam, regions)
+    if cram_regions != bam_regions:
+        bad = next(i for i, (a, b) in enumerate(zip(cram_regions,
+                                                    bam_regions)) if a != b)
+        raise AssertionError(f"records: region {regions[bad]} on the CRAM "
+                             "differs from the BAM's answer")
+    log(f"records: {len(regions)} of the bam phase's regions on the RR=1 CRAM"
+        f" (.crai) == on the sorted BAM (.bai) ({sum(map(len, bam_regions))} "
+        f"records); {1e3 * t_regions / len(regions):.1f} ms a query on the "
+        f"CRAM, {1e3 * t_bam_regions / len(regions):.2f} on the BAM [{card}]")
+    # 3. seqtools align -C
+    cli_got, _ = read_all(cli_cram)
+    cli_want, _ = read_all(os.path.join(workdir, "cli.bam"))
+    if [record_key(r) for r in cli_got] != [record_key(r) for r in cli_want]:
+        raise AssertionError("records: seqtools align -C's CRAM differs from "
+                             "the cli phase's align -b BAM")
+    log(f"records: seqtools align -C of {CLI_ALIGN} reads in {t_cli:.2f} s = "
+        f"{CLI_ALIGN / t_cli:.0f} reads/s; its CRAM == the cli phase's BAM "
+        f"record for record ({len(cli_got)} records, "
+        f"{os.path.getsize(cli_cram)} B) [{card}]")
+    # 4. intervals
+    brute = np.zeros(n, np.int64)
+    for c in range(hdr.num_sequences()):
+        tt = [g for g in tiles if g.chr == c]
+        s = np.array([g.pos1 for g in tt])[None, :]
+        e = np.array([g.pos2 for g in tt])[None, :]
+        m = q_tid == c
+        brute[m] = ((s <= q2[m][:, None]) & (e >= q1[m][:, None])).sum(1)
+    if not np.array_equal(counts, brute):
+        raise AssertionError("records: count_overlaps_batch differs from "
+                             "the brute-force count")
+    log(f"records: GRC tiles of 10 kb (1 kb overlap): {len(tiles)}; the "
+        f"overlaps of {n} alignments by count_overlaps_batch == brute force "
+        f"(mean {counts.mean():.3f}, max {counts.max()}); tiling, tree and "
+        f"counts {1e3 * t_tiles:.1f} ms [{card}]")
+    # 5. filters, held against the rules' own predicates
+    def in_bed(r):
+        end = max(r.position_end(), r.pos)
+        return any(t == r.tid and s <= end and e >= r.pos
+                   for t, s, e in bed_rows)
+
+    def sampled(r):
+        h = wang_hash(x31_hash(r.qname) ^ 999)
+        return (h & 0xFFFFFF) / 0x1000000 < 0.5
+
+    n_rule = [0, 0, 0]
+    for r, k in zip(bam_recs, kept):
+        rules = (in_bed(r) and 20 <= r.mapq <= 60 and sampled(r),
+                 in_bed(r) and 10 <= r.num_clip() <= 1000,
+                 any(m in r.seq for m in motifs))
+        if k != any(rules):
+            raise AssertionError(f"records: the filter kept={k} {r.qname} "
+                                 f"against its rules {rules}")
+        for i, v in enumerate(rules):
+            n_rule[i] += v
+    n_kept = sum(kept)
+    log(f"records: ReadFilterCollection (BED region + MAPQ 20-60 at "
+        f"subsample 0.5, BED region + clip 10-1000, 8 motifs): kept {n_kept},"
+        f" dropped {n - n_kept} (rules met {n_rule}), each decision == the "
+        f"rules' predicates; {n / t_filter:.0f} records/s [{card}]")
+    # 6. statistics and plot
+    diff = np.zeros(COV_WINDOW + 1, np.int64)
+    for r in fed:
+        p, e = r.pos, r.position_end()
+        if p >= 0 and e >= 0:
+            diff[max(p, 0)] += 1
+            diff[min(e + 1, COV_WINDOW)] -= 1
+    track = np.cumsum(diff)[:COV_WINDOW]
+    back = bedgraph_track(graph, 0, COV_WINDOW)
+    if cov.max_cov() != track.max() \
+            or not np.array_equal(back[:-1], track[:-1]) \
+            or not np.array_equal(cov.v, track):
+        raise AssertionError("records: STCoverage differs from the numpy "
+                             "coverage")
+    groups = list(stats.group_map.values())
+    if sum(g.reads for g in groups) != n \
+            or sum(g.mapq.total_count() for g in groups) != n \
+            or len(table.splitlines()) != len(groups) + 1:
+        raise AssertionError("records: BamStats does not count every record")
+    inside = [r for r in bam_recs if r.tid == 0 and r.pos >= view.pos1
+              and r.position_end() <= view.pos2]
+    lines = drawn.splitlines()
+    for r in bam_recs:
+        if r.tid != 0 or r.position_end() <= view.pos1 or r.pos >= view.pos2:
+            continue
+        times = sum(ln.count(f"{r.qname}>>>1:{r.pos},") for ln in lines)
+        want_times = sum(1 for x in inside if x.qname == r.qname
+                         and x.pos == r.pos)
+        if times != want_times:
+            raise AssertionError(f"records: SeqPlot drew {r.qname} {times} "
+                                 f"times, not {want_times}")
+    if drawn.count(">>>") != len(inside) or not inside:
+        raise AssertionError("records: SeqPlot drew other reads than the "
+                             "window's")
+    log(f"records: STCoverage of chr1:0-{COV_WINDOW} ({len(fed)} reads): "
+        f"max_cov {cov.max_cov()}, {len(graph.splitlines())} bedgraph runs =="
+        f" numpy coverage; BamStats {len(groups)} read group(s), {n} reads and"
+        f" MAPQ counts; coverage and stats {t_stats:.2f} s; SeqPlot of "
+        f"chr1:{view.pos1}-{view.pos2}: {len(inside)} reads inside on "
+        f"{len(lines)} lines, each once, in {1e3 * t_plot:.1f} ms [{card}]")
+    log(f"records: K1 {launches['sw_extend']} and K2 "
+        f"{launches['smem_machine']} launches on the path (align -C); phase "
+        f"{time.time() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def long_edge_phase(dev, fm, genome: str, card: str) -> None:
     """K1 and K2 at long shapes against their plain versions on the card
     (tolerance 0, grouped as in ``check_time_recorded``), each call
@@ -2036,38 +2377,48 @@ def main() -> int:
     t_new = time.time()
     long_launches, long_times = long_read_phase(aln, genome, card, load_ns)
     pair_launches, pairs = paired_phase(aln, genome, card)
-    with tempfile.TemporaryDirectory() as workdir:
+    # the bam, cli and records phases share one work directory: records
+    # reads the bam phase's sorted BAM and the cli phase's files
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
         bam_launches, bam_out = bam_phase(genome, reads, dev, card, workdir)
-    t0 = time.time()
-    long_edge_phase(dev, rec.k2[0][0], genome, card)
-    log(f"long edge phase: {time.time() - t0:.1f} s")
-    for k in cuda_lib.MAIN_PATH:
-        kernels[k]["by_path"] = dict(
-            main=path_fields(kernels[k]["launches"]),
-            overflow=path_fields(over_launches[k]),
-            long=path_fields(long_launches[k], long_times[k]),
-            paired=path_fields(pair_launches[k]),
-            bam=path_fields(bam_launches[k]))
-    log(f"long-read, paired, bam and long edge phases: "
-        f"{time.time() - t_new:.1f} s"
-        f" [{card}]")
+        t0 = time.time()
+        long_edge_phase(dev, rec.k2[0][0], genome, card)
+        log(f"long edge phase: {time.time() - t0:.1f} s")
+        for k in cuda_lib.MAIN_PATH:
+            kernels[k]["by_path"] = dict(
+                main=path_fields(kernels[k]["launches"]),
+                overflow=path_fields(over_launches[k]),
+                long=path_fields(long_launches[k], long_times[k]),
+                paired=path_fields(pair_launches[k]),
+                bam=path_fields(bam_launches[k]))
+        log(f"long-read, paired, bam and long edge phases: "
+            f"{time.time() - t_new:.1f} s"
+            f" [{card}]")
 
-    # ---- BFC and assembly ----------------------------------------------------
-    t0 = time.time()
-    asm_launches, asm_contigs = assembly_local_phase(genome, card)
-    log(f"assembly-local phase: {time.time() - t0:.1f} s")
-    t2 = time.time()
-    with tempfile.TemporaryDirectory() as workdir:
+        # ---- BFC and assembly, the command line, records -------------------
+        t0 = time.time()
+        asm_launches, asm_contigs = assembly_local_phase(genome, card)
+        log(f"assembly-local phase: {time.time() - t0:.1f} s")
+        t2 = time.time()
         cli_launches = cli_phase(genome, reads, pairs, asm_contigs, bam_out,
                                  card, workdir)
-    del bam_out
-    for k in cuda_lib.MAIN_PATH:
-        kernels[k]["by_path"]["cli"] = path_fields(cli_launches[k])
-    log(f"cli phase: {time.time() - t2:.1f} s [{card}]")
+        del bam_out
+        for k in cuda_lib.MAIN_PATH:
+            kernels[k]["by_path"]["cli"] = path_fields(cli_launches[k])
+        log(f"cli phase: {time.time() - t2:.1f} s [{card}]")
+        t2 = time.time()
+        records_launches = records_phase(card, workdir)
+        for k in cuda_lib.MAIN_PATH:
+            kernels[k]["by_path"]["records"] = path_fields(
+                records_launches[k])
+        log(f"records phase: {time.time() - t2:.1f} s [{card}]")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     t1 = time.time()
     bfc_launches = bfc_genome_phase(genome, card)
-    log(f"bfc-genome phase: {time.time() - t1:.1f} s; both assembly phases "
-        f"and the cli phase {time.time() - t0:.1f} s [{card}]")
+    log(f"bfc-genome phase: {time.time() - t1:.1f} s; both assembly phases, "
+        f"the cli and records phases {time.time() - t0:.1f} s [{card}]")
     asm_launches = {k: asm_launches[k] + bfc_launches[k]
                     for k in cuda_lib.LAUNCHES}
 

@@ -2,11 +2,13 @@
 
 Short-read, long-read and paired alignment (seed, locate, chain, banded
 extension, dedup, global DP and traceback, native SAM/BAM emission) on
-an NVIDIA Hopper GPU, BFC and string-graph assembly, SAM/BAM file I/O,
-bwa's index files and the ``seqtools`` command line
-(``python -m seqlib_tpu_torch.cli``).  The package mirrors
+an NVIDIA Hopper GPU, BFC and string-graph assembly, SAM/BAM/CRAM file
+I/O, bwa's index files, interval collections, the JSON read-filter
+engine, coverage and BAM statistics, ASCII plots and the ``seqtools``
+command line (``python -m seqlib_tpu_torch.cli``).  The package mirrors
 ``seqlib_tpu``'s layout (``core``, ``index``, ``ops``, ``align``,
-``assembly``, ``io``) so each module has a named counterpart.
+``assembly``, ``io``, ``intervals``, ``filters``, ``stats``, ``plot``)
+so each module has a named counterpart.
 
 Entry points run on ``device="cuda"`` by default and raise when no GPU
 is present; pass ``device="cpu"`` to run every stage through the plain
@@ -33,11 +35,13 @@ _LAZY = {
     "RefGenome": "seqlib_tpu_torch.io",
     "BFC": "seqlib_tpu_torch.assembly",
     "FermiAssembler": "seqlib_tpu_torch.assembly",
+    "GRC": "seqlib_tpu_torch.intervals",
+    "GenomicRegionCollection": "seqlib_tpu_torch.intervals",
+    "ReadFilterCollection": "seqlib_tpu_torch.filters",
+    "SeqPlot": "seqlib_tpu_torch.plot",
+    "BamStats": "seqlib_tpu_torch.stats",
+    "STCoverage": "seqlib_tpu_torch.stats",
 }
-
-# exported by the JAX package, waiting for their modules here
-_NOT_PORTED = ("GRC", "GenomicRegionCollection", "ReadFilterCollection",
-               "SeqPlot", "BamStats", "STCoverage")
 
 
 def __getattr__(name):
@@ -45,10 +49,6 @@ def __getattr__(name):
     if name in _LAZY:
         import importlib
         return getattr(importlib.import_module(_LAZY[name]), name)
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            f"seqlib_tpu_torch.{name} is not ported yet (intervals, filters,"
-            " stats and plots: ROADMAP.md section 1, item 5)")
     raise AttributeError(name)
 
 

@@ -16,10 +16,10 @@ package's.
 
 ``--device`` (default ``cuda``) is where the aligner, BFC and the
 assembler run; without a GPU the default fails, and ``--device cpu``
-runs the plain PyTorch versions of the kernels.  Indexes over
-DEFAULT_MAX_SHARD_BP bases (which the JAX package shards) and CRAM
-output (``-C``) are refused.  Errors print ``seqtools: error: ...`` and
-exit 1.
+runs the plain PyTorch versions of the kernels.  ``-b`` writes BAM,
+``-C`` reference-free CRAM, and SAM otherwise.  Indexes over
+DEFAULT_MAX_SHARD_BP bases (which the JAX package shards) are refused.
+Errors print ``seqtools: error: ...`` and exit 1.
 """
 
 from __future__ import annotations
@@ -236,7 +236,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("-b", "--bam", action="store_true",
                         help="output BAM (not SAM)")
         sp.add_argument("-C", "--cram", action="store_true",
-                        help="output CRAM (not ported: refused)")
+                        help="output CRAM (not SAM)")
         sp.add_argument("-F", "--infasta",
                         help="input FASTA/FASTQ instead of BAM/SAM")
         sp.add_argument("-2", "--infasta2", dest="infasta2",

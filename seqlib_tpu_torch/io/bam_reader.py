@@ -1,12 +1,15 @@
-"""BamReader: pull reader over BAM and SAM files and stdin, with BAI
-region queries (counterpart of seqlib_tpu/io/bam_reader.py).
+"""BamReader: pull reader over BAM, CRAM and SAM files and stdin, with
+BAI and .crai region queries (counterpart of
+seqlib_tpu/io/bam_reader.py).
 
 ``next()`` returns a BamRecord or ``None`` at the end; ``set_region`` /
 ``set_regions`` (GenomicRegion, 1-based inclusive) seek through the
 file's ``.bai`` and advance from one region to the next.  A region keeps
 the records with ``position_end() > pos1 - 1`` and ``pos < pos2`` and
 stops at the first record at or past ``pos2``, so it answers rightly on
-a coordinate-sorted file only.  A CRAM file raises NotImplementedError.
+a coordinate-sorted file only.  A CRAM file reads through
+``CramReader``, its regions through ``<path>.crai``; a reference-based
+CRAM needs ``set_cram_reference`` unless it embeds its reference.
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ from .sam import parse_sam_line
 class BamReader:
     def __init__(self, path: str | None = None):
         self._path = None
-        self._mode = None  # "bam" | "sam"
+        self._mode = None  # "bam" | "sam" | "cram"
         self._bgzf: BgzfReader | None = None
         self._sam_fh = None
+        self._cram = None
+        self._cram_reference = None
         self._header = BamHeader()
         self._index: BaiIndex | None = None
         self._regions: list[GenomicRegion] = []
@@ -54,10 +59,11 @@ class BamReader:
             with open(path, "rb") as _fh:
                 magic6 = _fh.read(6)
             if magic6 == b"CRAM\x03\x00":
-                raise NotImplementedError(
-                    f"BamReader: {path} is CRAM, which seqlib_tpu_torch does "
-                    "not read yet (ROADMAP.md section 1, item 5)")
-            if is_bgzf(path):
+                from .cram import CramReader
+                self._mode = "cram"
+                self._cram = CramReader(path, reference=self._cram_reference)
+                self._header = self._cram.header
+            elif is_bgzf(path):
                 self._mode = "bam"
                 self._bgzf = BgzfReader(path)
                 self._header = read_bam_header(self._bgzf)
@@ -106,6 +112,9 @@ class BamReader:
         return self._header
 
     def close(self) -> None:
+        if self._cram is not None:
+            self._cram.close()
+            self._cram = None
         if self._bgzf:
             self._bgzf.close()
         if self._sam_fh:
@@ -113,6 +122,14 @@ class BamReader:
         self._mode = None
         self._bgzf = None
         self._sam_fh = None
+
+    def set_cram_reference(self, fasta) -> None:
+        """Reference for decoding a reference-based (RR=1) CRAM without
+        an embedded reference: a FASTA path, a dict name -> sequence, or
+        a RefGenome.  Before or after ``open``."""
+        self._cram_reference = fasta
+        if self._cram is not None:
+            self._cram.set_reference(fasta)
 
     def reset(self) -> None:
         """Close and reopen, dropping the regions."""
@@ -129,6 +146,8 @@ class BamReader:
         return self.set_regions([gr])
 
     def set_regions(self, grc) -> bool:
+        if self._mode == "cram":
+            return self._cram.set_regions(list(grc))
         if self._mode != "bam" or self._index is None:
             return False
         self._regions = list(grc)
@@ -155,6 +174,8 @@ class BamReader:
     def next(self) -> BamRecord | None:
         if self._mode == "sam":
             return self._next_sam()
+        if self._mode == "cram":
+            return self._cram.next()
         if self._mode != "bam":
             return None
         if self._in_region:

@@ -1,11 +1,13 @@
-"""BamWriter: BAM and SAM writer with a BAI index, built inline or after
-close (counterpart of seqlib_tpu/io/bam_writer.py).
+"""BamWriter: BAM, CRAM and SAM writer with a BAI index, built inline
+or after close, or a .crai (counterpart of seqlib_tpu/io/bam_writer.py).
 
 The format comes from the constant given (``SAM`` = 3, ``BAM`` = 4,
 ``CRAM`` = 6, the reference API's numbers) or from the path's extension.
-CRAM output raises NotImplementedError.  An index answers rightly only
-over a coordinate-sorted file: sort the records (``sort_by_position``)
-before ``enable_indexing``.
+CRAM goes through ``CramWriter``: reference-free, or reference-based
+(RR=1) after ``set_cram_reference``; ``build_index`` after ``close``
+writes its ``<path>.crai``.  An index answers rightly only over a
+coordinate-sorted file: sort the records (``sort_by_position``) before
+``enable_indexing``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ class BamWriter:
         self._fmt = fmt
         self._path: str | None = None
         self._bgzf: BgzfWriter | None = None
+        self._cram = None
+        self._cram_reference = None
+        self._crai_entries = None
         self._sam_fh = None
         self._header: BamHeader | None = None
         self._header_written = False
@@ -52,9 +57,10 @@ class BamWriter:
                 self._sam_fh = (sys.stdout if path == "-"
                                 else open(path, "w"))
             elif fmt == CRAM:
-                raise NotImplementedError(
-                    "BamWriter: seqlib_tpu_torch does not write CRAM yet "
-                    "(ROADMAP.md section 1, item 5)")
+                from .cram import CramWriter
+                target = sys.stdout.buffer if path == "-" else path
+                self._cram = CramWriter(target,
+                                        reference=self._cram_reference)
             else:
                 target = sys.stdout.buffer if path == "-" else path
                 self._bgzf = BgzfWriter(target)
@@ -63,7 +69,17 @@ class BamWriter:
             return False
 
     def is_open(self) -> bool:
-        return self._bgzf is not None or self._sam_fh is not None
+        return self._bgzf is not None or self._sam_fh is not None \
+            or self._cram is not None
+
+    def set_cram_reference(self, fasta) -> None:
+        """Attach a reference for CRAM output, which makes it
+        reference-based (RR=1): a FASTA path (with its ``.fai``), a dict
+        name -> sequence, or a RefGenome.  Before or after ``open``, but
+        before the first container is flushed."""
+        self._cram_reference = fasta
+        if self._cram is not None:
+            self._cram.set_reference(fasta)
 
     # -- header --------------------------------------------------------------
 
@@ -78,6 +94,8 @@ class BamWriter:
             self._sam_fh.write(self._header.as_string())
             if not self._header.as_string().endswith("\n"):
                 self._sam_fh.write("\n")
+        elif self._fmt == CRAM:
+            self._cram.write_header(self._header)
         else:
             write_bam_header(self._bgzf, self._header)
         self._header_written = True
@@ -90,6 +108,9 @@ class BamWriter:
             self.write_header()
         if self._fmt == SAM:
             self._sam_fh.write(rec.to_sam(self._header) + "\n")
+            return True
+        if self._fmt == CRAM:
+            self._cram.write_record(rec)
             return True
         voff_beg = self._bgzf.tell_virtual()
         self._bgzf.write(encode_record(rec))
@@ -124,11 +145,17 @@ class BamWriter:
         self._index = BaiIndex(self._header.num_sequences())
 
     def build_index(self) -> bool:
-        """Write ``<path>.bai`` for the closed BAM output: the inline
+        """Write ``<path>.bai`` for the closed BAM output (the inline
         index if one was collected, else one built by reading the file
-        back."""
-        if self._fmt != BAM or self._path in (None, "-"):
+        back), or ``<path>.crai`` for the closed CRAM output."""
+        if self._fmt == SAM or self._path in (None, "-"):
             return False
+        if self._fmt == CRAM:
+            if self._crai_entries is None:
+                return False
+            from .cram import write_crai
+            write_crai(self._path + ".crai", self._crai_entries)
+            return True
         if self._index is not None:
             self._index.save(self._path + ".bai")
             return True
@@ -152,6 +179,11 @@ class BamWriter:
             if self._sam_fh not in (None, sys.stdout):
                 self._sam_fh.close()
             self._sam_fh = None
+        elif self._fmt == CRAM:
+            if self._cram is not None:
+                self._cram.close()
+                self._crai_entries = self._cram.index_entries
+                self._cram = None
         elif self._bgzf is not None:
             self._bgzf.close()
             self._bgzf = None

@@ -146,11 +146,16 @@ def test_exports():
                "AlignerOptions": align, "BFC": assembly,
                "FermiAssembler": assembly}.get(name, io)
         assert getattr(seqlib_tpu_torch, name) is getattr(mod, name)
-    for name in ("GRC", "GenomicRegionCollection", "ReadFilterCollection",
-                 "SeqPlot", "BamStats", "STCoverage"):
-        assert name in seqlib_tpu.__all__
-        with pytest.raises(AttributeError, match="item 5"):
-            getattr(seqlib_tpu_torch, name)
+    from seqlib_tpu_torch import filters, intervals, plot, stats
+    for name, mod in (("GRC", intervals), ("GenomicRegionCollection",
+                                           intervals),
+                      ("ReadFilterCollection", filters), ("SeqPlot", plot),
+                      ("BamStats", stats), ("STCoverage", stats)):
+        assert name in seqlib_tpu.__all__ and name in seqlib_tpu_torch.__all__
+        assert getattr(seqlib_tpu_torch, name) is getattr(mod, name)
+        assert getattr(seqlib_tpu_torch, name).__name__ \
+            == getattr(seqlib_tpu, name).__name__
+    assert set(seqlib_tpu.__all__) <= set(seqlib_tpu_torch.__all__)
     with pytest.raises(AttributeError):
         seqlib_tpu_torch.NoSuchName
     assert seqlib_tpu_torch.__version__ == seqlib_tpu.__version__

@@ -489,17 +489,24 @@ def test_refgenome_query_equals_jax(tmp_path):
         RefGenome().query_region("ctg0", 0, 1)
 
 
-# -- what the port refuses ----------------------------------------------------
+# -- CRAM through BamWriter / BamReader ---------------------------------------
 
 def test_cram_raises_not_implemented(tmp_path):
-    p = tmp_path / "x.cram"
-    p.write_bytes(b"CRAM\x03\x00" + b"\x00" * 40)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        BamReader().open(str(p))
-    hdr, _ = _make_records(1)
-    for w, path in ((BamWriter(CRAM), "y.bam"), (BamWriter(), "y.cram")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            w.open(str(tmp_path / path))
+    """The CRAM routes (``BamWriter(CRAM)``, a ``.cram`` path, and
+    ``BamReader`` on the file) raise nothing: each writes or reads the
+    records, byte-equal to the JAX package's CRAM."""
+    hdr, recs = _make_records(60)
+    want = _sam(recs, hdr)
+    for fmt, name in ((CRAM, "y.bam"), (None, "y.cram")):
+        path = _write(tmp_path / name, hdr, recs, fmt=fmt)
+        assert not is_bgzf(path)
+        jpath = _write(tmp_path / f"j.{name}", *_make_records(60, pkg=JAX),
+                       pkg=JAX, fmt=jio.CRAM)
+        assert open(path, "rb").read() == open(jpath, "rb").read()
+        rd = BamReader()
+        assert rd.open(path)
+        assert _sam(list(rd), rd.header()) == want
+        rd.close()
     assert CRAM == jio.CRAM and BAM == jio.BAM and SAM == jio.SAM
 
 

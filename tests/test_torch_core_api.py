@@ -1,9 +1,10 @@
 """The port's record model against the JAX package's.
 
 * Signatures: every public name of ``seqlib_tpu.core`` and of
-  ``seqlib_tpu.io`` (CRAM apart), every public method and attribute of
+  ``seqlib_tpu.io``, every public method and attribute of
   ``BamRecord``, ``GenomicRegion``, ``BamHeader`` and ``Cigar``, and the
-  public names each I/O module defines, exist in the port.
+  public names each I/O, interval, filter, statistics and plot module
+  defines (and its classes' members), exist in the port.
 * The cases of ``tests/test_core.py``, run on each package.
 * A table: every ``BamRecord`` accessor on 50 records (40 lines of
   ``tests/golden/sam_repeat_1k.txt``, 10 made by hand) returns in the
@@ -29,9 +30,12 @@ import seqlib_tpu_torch.io as tio
 import seqlib_tpu_torch.io.sam as tsam
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-CRAM_NAMES = {"CramReader", "CramWriter"}
 IO_MODULES = ("bam", "bgzf", "bai", "sam", "bam_reader", "bam_writer",
-              "threadpool", "refgenome", "fast_bam")
+              "threadpool", "refgenome", "fast_bam", "cram", "cram_codecs")
+HOST_MODULES = ("intervals.tree", "intervals.collection",
+                "filters.ahocorasick", "filters.readfilter",
+                "stats.histogram", "stats.bamstats", "stats.coverage",
+                "stats.fractions", "plot.seqplot")
 
 
 def _public(obj):
@@ -47,7 +51,7 @@ def test_core_exports_match():
 
 
 def test_io_exports_match():
-    want = set(jio.__all__) - CRAM_NAMES
+    want = set(jio.__all__)
     assert want <= set(tio.__all__)
     for name in want:
         assert hasattr(tio, name), name
@@ -85,20 +89,33 @@ def test_record_module_names_match():
     assert not missing, sorted(missing)
 
 
-@pytest.mark.parametrize("mod", IO_MODULES)
-def test_io_module_names_match(mod):
+def _module_names_match(mod):
     import importlib
-    j = importlib.import_module(f"seqlib_tpu.io.{mod}")
-    t = importlib.import_module(f"seqlib_tpu_torch.io.{mod}")
+    j = importlib.import_module(f"seqlib_tpu.{mod}")
+    t = importlib.import_module(f"seqlib_tpu_torch.{mod}")
     own = _own_names(j)
     missing = {n for n in own if not hasattr(t, n)}
     assert not missing, sorted(missing)
     for n in own:
         a = getattr(j, n)
         if isinstance(a, type):
-            gone = {m for m in _public(a) if "cram" not in m.lower()} \
-                - _public(getattr(t, n))
+            gone = _public(a) - _public(getattr(t, n))
             assert not gone, (n, sorted(gone))
+
+
+@pytest.mark.parametrize("mod", IO_MODULES)
+def test_io_module_names_match(mod):
+    _module_names_match(f"io.{mod}")
+
+
+@pytest.mark.parametrize("mod", HOST_MODULES)
+def test_host_module_names_match(mod):
+    _module_names_match(mod)
+    pkg = mod.split(".")[0]
+    import importlib
+    j = importlib.import_module(f"seqlib_tpu.{pkg}")
+    t = importlib.import_module(f"seqlib_tpu_torch.{pkg}")
+    assert set(j.__all__) == set(t.__all__)
 
 
 # -- tests/test_core.py on both packages -------------------------------------

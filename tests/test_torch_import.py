@@ -71,7 +71,14 @@ def test_port_imports_no_jax_nor_jax_package():
               "seqlib_tpu_torch.io.refgenome",
               "seqlib_tpu_torch.io.fast_bam",
               "seqlib_tpu_torch.index.bwa_files", "seqlib_tpu_torch.cli",
-              "seqlib_tpu_torch.profiling", "seqlib_tpu_torch.utils"):
+              "seqlib_tpu_torch.profiling", "seqlib_tpu_torch.utils",
+              "seqlib_tpu_torch.io.cram", "seqlib_tpu_torch.io.cram_codecs",
+              "seqlib_tpu_torch.intervals",
+              "seqlib_tpu_torch.intervals.collection",
+              "seqlib_tpu_torch.filters",
+              "seqlib_tpu_torch.filters.readfilter",
+              "seqlib_tpu_torch.stats", "seqlib_tpu_torch.stats.coverage",
+              "seqlib_tpu_torch.plot", "seqlib_tpu_torch.plot.seqplot"):
         assert m in res["mods"], m
 
 
