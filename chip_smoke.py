@@ -129,7 +129,32 @@ last line is printed):
    ``before + 0.5 (n - before)`` and 90%; corrected reads/s and
    bases/s, stage times, unique k-mers, kcov, min_cov, peak memory, and
    one traced walk;
-17. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
+17. wide (a reference past 2^31 cannot be built in this script's time,
+   so it is shown three ways): K2's int64 instantiation against its
+   plain version on the card, bit for bit, on two synthetic BWTs of
+   2^31 + 2^24 bases built on the card (random codes with seeded shares,
+   the checkpoints from their cumulative counts; one uniform, one 99.7%
+   T so its T checkpoints pass 2^31), 4,096 seeded 150 bp reads each,
+   the collect call (pass 3 fused) and a re-seed call, with interval
+   starts past 2^31 among the seeds; the biased-checkpoint index
+   (rank'(c, k) = rank(c, k) + bias[c]) of the main reference through
+   the plain rank, rank4 and bi-extension on the card against the host
+   index's int64 ranks plus the bias; the main path with ``wide=True``
+   (int64 checkpoint rows, K2's int64 instance, an int64 region block):
+   one batch recorded, each K1 and K2 call held against its plain
+   version and timed, then the 32,768 reads through
+   ``align_stream_bam`` with the counters reset just before and read
+   just after, SAM == the narrow path's byte for byte, reads/s and peak
+   memory beside the narrow path's; a sharded index of the bam phase's
+   chr1..chr3 (two shards: chr1 | chr2 + chr3) written with
+   ``ShardedFMIndex.write`` and 4,096 reads through ``seqtools align``
+   on the ``.shards`` prefix, counters reset just before and read just
+   after: each read's records == the single index's in flag, place,
+   MAPQ, CIGAR, NM and AS, or, where its primary is one of several
+   equal-score hits, the same alignments with another of them primary
+   (the global keys order such hits differently, as in the JAX
+   package); reads/s;
+18. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
    probe line (clocks a scheduler per warp instruction of the s16x2 and
    int32 add-max, PRMT, and the s16x2 forms' edge semantics); then each
    kernel held against its plain version on the card, tolerance 0, on
@@ -142,11 +167,11 @@ last line is printed):
    per-call wrapper time, as for K1 and K2, beside the earlier layouts'
    times (PERF.md), and each variant's longest lane alone: rows,
    pipeline steps, ns a step), whose launches they report;
-18. one JSON line of all five kernels' numbers, each with its launches
+19. one JSON line of all five kernels' numbers, each with its launches
    on each path it has (``by_path``: K1 and K2 main, overflow, long,
-   paired, bam, cli, records; K3-K5 bench; all five assembly, where no
-   TPU-kernel counterpart runs), K1's and K2's long path with their mean
-   device ms and bound.
+   paired, bam, cli, records, wide, sharded; K3-K5 bench; all five
+   assembly, where no TPU-kernel counterpart runs), K1's and K2's long
+   and wide paths with their mean device ms and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -189,7 +214,8 @@ from seqlib_tpu_torch.io.bam import encode_record, read_bam_header, \
 from seqlib_tpu_torch.io.fast_bam import FastBamReader, fetch_region
 from seqlib_tpu_torch.io.sam import format_sam_line
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, kmer, sw_cuda
-from seqlib_tpu_torch.ops.fm import _smem_machine
+from seqlib_tpu_torch.ops import fm as fm_ops
+from seqlib_tpu_torch.ops.fm import DeviceFMIndex, _smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch
 from seqlib_tpu_torch.sim import (edge_read_batch, make_genome,
                                   make_repeat_genome, make_repeat_reads,
@@ -222,6 +248,13 @@ PLOT_WINDOW = 1_000
 K1_LONG_EDGES = [(Lq, w, z) for Lq in (4095, 4096, 4097, 6200)
                  for w in (32, 100) for z in (0, 100)] + [(30_000, 100, 100)]
 K2_LONG_EDGES = (12_289, 60_000)
+WIDE_SYNTH_BP = 2**31 + 2**24      # wide: a synthetic BWT past 2^31
+WIDE_SYNTH_READS = 4096
+# wide: base shares of the skewed synthetic BWT, whose T counts pass 2^31
+WIDE_SKEW = (0.001, 0.001, 0.001, 0.997)
+WIDE_BIAS = (3 << 30, (1 << 32) + 5, 1 << 31, (1 << 33) + 7)
+SHARD_BP = 2_700_000               # sharded: chr1 | chr2 + chr3
+SHARD_READS = 4096                 # reads through `seqtools align` on it
 ASM_WINDOW = 50_000                # assembly-local: genome[0:50 kb], before
 ASM_PAIRS = 5_000                  # the first planted repeat slot
 BFC_PAIRS = GENOME_BP * 30 // (2 * READ_BP)   # bfc-genome: 30x of 2 x 150 bp
@@ -481,9 +514,11 @@ def k2_bound_ms(fm, kw, work) -> tuple[float, str]:
     plain machine's ``count_work`` output)."""
     reads = kw["reads"]
     B = reads.shape[0]
-    nbytes = fm.blocks.numel() * 4 + reads.numel() + 4 * 4 * B + B \
-        + (4 * kw["max_seeds"] + 2) * 4 * B \
-        + (4 * kw.get("p3_seeds", 0) + 1) * 4 * B
+    S, P3 = kw["max_seeds"], kw.get("p3_seeds", 0)
+    il = 8 if fm.wide else 4          # interval starts: int64 on a wide index
+    nbytes = fm.blocks.numel() * fm.blocks.element_size() + reads.numel() \
+        + 4 * 4 * B + B + (3 * S + 2) * 4 * B + S * il * B \
+        + (3 * P3 + 1) * 4 * B + P3 * il * B
     ops = K2_OPS_PER_EXT * int(work["exts"].sum()) \
         + K2_OPS_PER_WORD * int(work["rank_words"].sum())
     return roof_ms(nbytes, ops)
@@ -2130,6 +2165,351 @@ def bfc_genome_phase(genome: str, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# wide: int64 ranks and positions (K2's int64 instantiation), sharded
+# ---------------------------------------------------------------------------
+
+def sharded_vs_single(got: list[str], want: list[str]) -> tuple[int, int]:
+    """SAM lines of a sharded index against a single index's, read by
+    read (both in read order): (reads equal, reads whose primary moved).
+    A read is equal when its records agree in the fields the JAX
+    package's sharded test holds (name, flag, place, MAPQ, CIGAR, SEQ,
+    NM, AS); otherwise its alignments (place, strand, CIGAR, NM, AS)
+    must be the same and the two primaries of equal AS: the sharded
+    index walks regions by global keys, which order equal-score hits
+    differently, and bwa's tie-break picks by that order.  Anything else
+    raises."""
+
+    def reads(lines):
+        out: dict[str, list] = {}
+        for ln in lines:
+            f = ln.split("\t")
+            tags = {t[:2]: t for t in f[11:]}
+            out.setdefault(f[0], []).append(
+                (f[1], f[2], f[3], f[4], f[5], f[9], tags.get("NM"),
+                 tags.get("AS")))
+        return out
+
+    def hits(recs):
+        return sorted((r[1], r[2], int(r[0]) & 16, r[4], r[6], r[7])
+                      for r in recs)
+
+    def primary_as(recs):
+        return [r[7] for r in recs if not int(r[0]) & 0x900]
+
+    g, w = reads(got), reads(want)
+    if list(g) != list(w):
+        raise AssertionError("sharded: other reads than the single index's")
+    same = flips = 0
+    for name, wr in w.items():
+        gr = g[name]
+        if sorted(gr) == sorted(wr):
+            same += 1
+        elif hits(gr) == hits(wr) and primary_as(gr) == primary_as(wr):
+            flips += 1
+        else:
+            raise AssertionError(f"sharded: {name} differs from the single "
+                                 f"index's: {gr} against {wr}")
+    return same, flips
+
+
+def synthetic_wide_index(n_bp: int, shares, seed: int, dev) -> DeviceFMIndex:
+    """A wide DeviceFMIndex over a synthetic BWT of ``n_bp`` bases (a
+    multiple of 128) drawn i.i.d. with the four codes' ``shares``, built
+    on the card: the words from a seeded generator, each block's
+    checkpoints from the words' cumulative counts (SWAR popcount), L2
+    from the totals, the primary at n_bp // 3.  It has no text and no SA
+    (only the SMEM machine runs on it)."""
+    nb = n_bp // 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cut = torch.tensor(np.cumsum(shares)[:3], dtype=torch.float32,
+                       device=dev)
+    words = torch.zeros(nb * 8, dtype=torch.int64, device=dev)
+    for j in range(16):
+        u = torch.rand(nb * 8, generator=gen, device=dev)
+        words |= torch.bucketize(u, cut, right=True).to(torch.int64) \
+            << (2 * (15 - j))
+        del u
+    cp = torch.zeros((nb + 1, 4), dtype=torch.int64, device=dev)
+    for c in range(4):
+        nx = ~(words ^ (c * 0x55555555)) & 0xFFFFFFFF
+        per = fm_ops.popcount32(nx & (nx >> 1) & 0x55555555)
+        cp[1:, c] = per.view(nb, 8).sum(dim=1).cumsum(0)
+        del nx, per
+    pairs = words.view(nb, 4, 2)
+    rows = torch.zeros((nb + 1, 4), dtype=torch.int64, device=dev)
+    rows[:nb] = pairs[..., 0] | (pairs[..., 1] << 32)
+    del words, pairs
+    blocks = torch.cat([cp, rows], dim=1).contiguous()
+    del rows
+    tot = [int(v) for v in cp[nb]]
+    L2 = [0, tot[0], tot[0] + tot[1], tot[0] + tot[1] + tot[2], n_bp]
+    return DeviceFMIndex(
+        blocks=blocks, sa=torch.zeros(1, dtype=torch.int64, device=dev),
+        L2=torch.tensor(L2, dtype=torch.int64, device=dev),
+        L2_host=tuple(L2), primary=n_bp // 3, seq_len=n_bp,
+        l_pac=n_bp // 2)
+
+
+def synthetic_k2_check(fm, shares, min_seed_len: int, seed: int, dev,
+                       what: str, card: str) -> None:
+    """K2 (int64 instantiation) against its plain version on ``fm`` for
+    WIDE_SYNTH_READS seeded 150 bp reads drawn with ``shares``: the
+    collect call (pass 3 fused) and a re-seed call from each read's
+    middle, bit-equal, with interval starts past 2^31 among the collect
+    call's seeds; each call timed beside its bound."""
+    rng = np.random.default_rng(seed)
+    B, L = WIDE_SYNTH_READS, READ_BP
+    reads = torch.from_numpy(rng.choice(4, size=(B, L), p=shares)
+                             .astype(np.uint8)).to(dev)
+    lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+    calls = [dict(reads=reads, lens=lens,
+                  x0=torch.zeros(B, dtype=torch.int32, device=dev),
+                  min_intv=torch.ones(B, dtype=torch.int32, device=dev),
+                  active=lens > 0, max_seeds=16, min_seed_len=min_seed_len,
+                  C=8, max_rounds=L, step_cap=4 * L + 16, p3_seeds=8,
+                  p3_max_intv=20),
+             dict(reads=reads, lens=lens,
+                  x0=torch.full((B,), L // 2, dtype=torch.int32, device=dev),
+                  min_intv=torch.full((B,), 2, dtype=torch.int32,
+                                      device=dev),
+                  active=lens > 0, max_seeds=4, min_seed_len=min_seed_len,
+                  C=8, max_rounds=1, step_cap=2 * L + 8)]
+    for kw in calls:
+        keys = K2_KEYS_BASE + (K2_KEYS_P3 if kw.get("p3_seeds") else ())
+        got = fm_cuda.smem_machine_cuda(fm, **kw)
+        work = _smem_machine(fm, **kw, count_work=True)
+        err = max_abs_diff(got, work, keys)
+        n = got["n_seeds"].to(torch.int64)
+        live = torch.arange(kw["max_seeds"], device=dev)[None, :] < n[:, None]
+        il = got["intv_l"][live]
+        past = int((il >= 2**31).sum())
+        if err or got["intv_l"].dtype != torch.int64:
+            raise AssertionError(f"{what}: K2 wide differs from plain "
+                                 f"({err})")
+        ms = device_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw), 3)
+        bd = k2_bound_ms(fm, kw, work)
+        log(f"  {what} B={B} S={kw['max_seeds']} p3={kw.get('p3_seeds', 0)}"
+            f" rounds={kw['max_rounds']}: K2 wide == plain (tolerance 0; "
+            f"{int(n.sum())} seeds, {past} with an interval start past 2^31,"
+            f" largest {int(il.max()) if il.numel() else 0}); {ms:.4f} ms "
+            f"device time, bound {bd[0]:.4f} ms ({bd[1]}) [{card}]")
+        if kw.get("p3_seeds") and past == 0:
+            raise AssertionError(f"{what}: no interval start past 2^31")
+
+
+def biased_rank_check(idx, dev, card: str) -> None:
+    """The biased-checkpoint index on the main reference (rank'(c, k) =
+    rank(c, k) + WIDE_BIAS[c]): the plain rank, rank4 and FMD
+    bi-extension on the card against the host index's int64 ranks plus
+    the bias, values past 2^31.  K2 cannot run on it: a biased
+    interval points past the BWT."""
+    bias = np.array(WIDE_BIAS, np.int64)
+    fm = DeviceFMIndex.from_host(idx, device=dev, wide=True,
+                                 count_bias=bias)
+    rng = np.random.default_rng(5)
+    n = idx.seq_len
+    k = np.concatenate([rng.integers(0, n + 1, 100_000),
+                        [0, 1, 127, 128, n - 1, n]]).astype(np.int64)
+    kt = torch.from_numpy(k).to(dev)
+    host = np.stack([idx.rank(c, k).astype(np.int64) for c in range(4)], 1)
+    want = host + bias[None, :]
+    got4 = fm_ops.rank4(fm, kt).cpu().numpy()
+    got = np.stack([fm_ops.rank(fm, c, kt).cpu().numpy() for c in range(4)],
+                   1)
+    if not (np.array_equal(got4, want) and np.array_equal(got, want)):
+        raise AssertionError("biased ranks differ from host int64 + bias")
+    s = np.minimum(rng.integers(0, 5000, k.size), n + 1 - k)
+    k4, l4, s4 = fm_ops.bi_extend_back(
+        fm, kt, kt, torch.from_numpy(s).to(dev))
+    plain = DeviceFMIndex.from_host(idx, device=dev, wide=True)
+    k4p, l4p, s4p = fm_ops.bi_extend_back(
+        plain, kt, kt, torch.from_numpy(s).to(dev))
+    if not (torch.equal(k4 - k4p, torch.tensor(bias, device=dev)
+                        .expand_as(k4))
+            and torch.equal(s4, s4p) and torch.equal(l4, l4p)):
+        raise AssertionError("biased bi-extension differs")
+    log(f"wide: biased-checkpoint index on the main reference: rank, rank4 "
+        f"and bi-extension of {k.size} positions on the card == host int64 "
+        f"+ bias ({int((want >= 2**31).sum())} of {want.size} ranks past "
+        f"2^31, largest {int(want.max())}) [{card}]")
+
+
+HG38_2L = 6_200_000_000           # an hg38-scale 2L text, for the reckoning
+
+
+def wide_device_bytes(two_l: int) -> dict:
+    """Device bytes of a wide index over a 2L text of ``two_l`` bases,
+    as ``DeviceFMIndex.from_host`` and ``BWAAligner`` lay them out: the
+    uint8 text, the BWT words (inside the rows), the 64-byte checkpoint
+    rows, the int64 SA sampled every 32 ranks and the full int64 SA."""
+    rows = -(-two_l // 128) + 1
+    return dict(text=two_l, bwt_words=(two_l + 15) // 16 * 4,
+                rows=rows * 64, sa_sampled=(two_l // 32 + 1) * 8,
+                sa_full=(two_l + 1) * 8)
+
+
+def wide_phase(genome: str, idx, reads, outs, narrow: dict, dev,
+               card: str) -> dict:
+    """What a user with a reference past ~1.07 Gbp runs, shown three
+    ways (an index past 2^31 cannot be built in this script's time):
+    K2's int64 instantiation on synthetic BWTs past 2^31 and the biased
+    ranks; the main path with ``wide=True`` on the main reference
+    (records == the narrow path's); a sharded index through ``seqtools
+    align`` (records == the single index's).  Returns per-kernel
+    {"wide": path fields, "sharded": path fields}."""
+    from seqlib_tpu_torch import cli
+    from seqlib_tpu_torch.align.pairing import mark_supplementary
+    from seqlib_tpu_torch.index import ShardedFMIndex
+    t_phase = time.time()
+    b = wide_device_bytes(HG38_2L)
+    log(f"wide: device bytes of an index over a 2L text of {HG38_2L} "
+        f"(hg38 scale): text {b['text'] / 1e9:.2f} GB, BWT words "
+        f"{b['bwt_words'] / 1e9:.2f} GB inside the 64-byte rows "
+        f"{b['rows'] / 1e9:.2f} GB, SA sampled at 32 "
+        f"{b['sa_sampled'] / 1e9:.2f} GB, full SA {b['sa_full'] / 1e9:.2f} "
+        f"GB: text + rows + full SA {(b['text'] + b['rows'] + b['sa_full']) / 1e9:.2f}"
+        f" GB, with the sampled SA "
+        f"{(b['text'] + b['rows'] + b['sa_sampled']) / 1e9:.2f} GB, of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f} GB")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    fm = synthetic_wide_index(WIDE_SYNTH_BP, (0.25,) * 4, 31, dev)
+    torch.cuda.synchronize()
+    log(f"wide: synthetic BWT of {WIDE_SYNTH_BP} bases ({fm.blocks.shape[0]}"
+        f" 64-byte rows, {fm.blocks.numel() * 8 / 2**30:.2f} GiB, L2 "
+        f"{list(fm.L2_host)}) built on the card in {time.time() - t0:.1f} s;"
+        f" peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB"
+        f" above the run's [{card}]")
+    synthetic_k2_check(fm, (0.25,) * 4, 12, 32, dev,
+                       "uniform synthetic BWT", card)
+    del fm
+    fm = synthetic_wide_index(WIDE_SYNTH_BP, WIDE_SKEW, 33, dev)
+    if fm.L2_host[4] - fm.L2_host[3] < 2**31:
+        raise AssertionError("skewed synthetic BWT: T count under 2^31")
+    log(f"wide: skewed synthetic BWT (shares {WIDE_SKEW}): {fm.L2_host[4] - fm.L2_host[3]}"
+        f" T, the last rows' T checkpoints past 2^31")
+    synthetic_k2_check(fm, (0.05, 0.05, 0.05, 0.85), 8, 34, dev,
+                       "skewed synthetic BWT", card)
+    del fm
+    torch.cuda.empty_cache()
+    biased_rank_check(idx, dev, card)
+
+    # ---- the main path, wide=True ----------------------------------------
+    t0 = time.time()
+    aln_w = BWAAligner(idx, wide=True, device=dev)
+    log(f"wide: BWAAligner(wide=True) on the main reference: blocks "
+        f"{tuple(aln_w.fm.blocks.shape)} {aln_w.fm.blocks.dtype} "
+        f"({aln_w.fm.blocks.numel() * 8 / 2**20:.1f} MiB against "
+        f"{narrow['blocks_mib']:.1f} narrow), upload {time.time() - t0:.2f} s")
+    b0 = reads[:BATCH]
+    with Recorder() as rec:
+        aln_w.align_batch_bam([q for _, q in b0], [n for n, _ in b0],
+                              sam=True)
+    if not rec.k2 or any(r[0].blocks.dtype != torch.int64 for r in rec.k2):
+        raise AssertionError("wide path: K2 not called on the wide index")
+    w_times = check_time_recorded(rec, "wide path (one batch)", narrow["load_ns"],
+                                  card)
+    del rec
+
+    class Read:
+        __slots__ = ("name", "seq")
+
+        def __init__(self, n, q):
+            self.name, self.seq = n, q
+
+    stream = [Read(n, q) for n, q in reads]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    outs_w = list(aln_w.align_stream_bam(iter(stream), batch_size=BATCH,
+                                         sam=True))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    wide_launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for k in cuda_lib.MAIN_PATH:
+        if wide_launches[k] <= 0:
+            raise AssertionError(f"wide path: kernel {k} not launched")
+    same = len(outs_w) == len(outs) and all(
+        pw == pn and np.array_equal(cw, cn)
+        for (_, pw, cw), (_, pn, cn) in zip(outs_w, outs))
+    if not same:
+        raise AssertionError("wide path: records differ from the narrow "
+                             "path's")
+    n_rec = sum(int(c.sum()) for _, _, c in outs_w)
+    log(f"wide: main path wide=True: {len(reads)} reads in {wall:.2f} s = "
+        f"{len(reads) / wall:.0f} reads/s (narrow {narrow['reads_s']:.0f}); "
+        f"SAM == the narrow path's byte for byte ({n_rec} records); "
+        f"launches {wide_launches}; peak device memory {peak:.0f} MiB "
+        f"(narrow {narrow['peak_mib']:.0f}) [{card}]")
+    del aln_w, outs_w
+
+    # ---- sharded ---------------------------------------------------------
+    contigs = bam_contigs(genome)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_wide_")
+    try:
+        t0 = time.time()
+        sidx = ShardedFMIndex.construct(contigs, max_shard_bp=SHARD_BP)
+        prefix = os.path.join(workdir, "ref.fa")
+        sidx.write(prefix)
+        t_index = time.time() - t0
+        if sidx.n_shards < 2:
+            raise AssertionError("sharded: fewer than 2 shards")
+        fq = os.path.join(workdir, "reads.fq")
+        sub = reads[:SHARD_READS]
+        write_fastq(fq, sub)
+        out_sam = os.path.join(workdir, "sharded.sam")
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.time()
+        if cli.main(["align", "-F", fq, "-G", prefix, "-o", out_sam]) != 0:
+            raise AssertionError("sharded: seqtools align failed")
+        torch.cuda.synchronize()
+        t_align = time.time() - t0
+        sh_launches = dict(cuda_lib.LAUNCHES)
+        for k in cuda_lib.MAIN_PATH:
+            if sh_launches[k] <= 0:
+                raise AssertionError(f"sharded: kernel {k} not launched")
+        with open(out_sam) as fh:
+            lines = fh.read().splitlines()
+        body = [ln for ln in lines if not ln.startswith("@")]
+        single = FMIndex.construct(contigs)
+        aln1 = BWAAligner(single, device=dev)
+        hdr = single.header_from_index()
+        want = []
+        for i in range(0, len(sub), 512):
+            chunk = sub[i:i + 512]
+            for recs in aln1.align_batch([q for _, q in chunk],
+                                         [n for n, _ in chunk]):
+                mark_supplementary(recs)
+                want += [r.to_sam(hdr) for r in recs]
+
+        same, flips = sharded_vs_single(body, want)
+        head = "".join(ln + "\n" for ln in lines if ln.startswith("@"))
+        if head != single.sam_header_text():
+            raise AssertionError("sharded: header differs from the single "
+                                 "index's")
+        log(f"wide: sharded index of {sidx.n_shards} shards "
+            f"({[s.l_pac for s in sidx.shards]} bp; construct + write "
+            f"{t_index:.1f} s): seqtools align of {len(sub)} reads on the "
+            f".shards prefix {t_align:.2f} s = {len(sub) / t_align:.0f} reads/s;"
+            f" {len(body)} records: {same} reads == the single index's "
+            f"(flag, place, MAPQ, CIGAR, NM, AS), {flips} with the same "
+            f"alignments and another of equal AS primary; launches "
+            f"{sh_launches} [{card}]")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"wide phase: {time.time() - t_phase:.1f} s [{card}]")
+    return {k: dict(wide=path_fields(wide_launches[k], w_times[k]),
+                    sharded=path_fields(sh_launches[k]))
+            for k in cuda_lib.MAIN_PATH}
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2321,6 +2701,9 @@ def main() -> int:
     wall = time.time() - t0
     launches = dict(cuda_lib.LAUNCHES)
     n_reads = sum(len(c) for c, _, _ in outs)
+    narrow = dict(reads_s=n_reads / wall,
+                  peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                  blocks_mib=aln.fm.blocks.numel() * 4 / 2**20)
     log(f"main path: {n_reads} reads in {len(outs)} batches through "
         f"align_stream_bam on {name}: {wall:.2f} s = "
         f"{n_reads / wall:.0f} reads/s [{card}]")
@@ -2421,6 +2804,13 @@ def main() -> int:
         f"the cli and records phases {time.time() - t0:.1f} s [{card}]")
     asm_launches = {k: asm_launches[k] + bfc_launches[k]
                     for k in cuda_lib.LAUNCHES}
+
+    # ---- wide: int64 ranks, wide=True main path, sharded ---------------------
+    narrow["load_ns"] = load_ns
+    wide_paths = wide_phase(genome, idx, reads, outs, narrow, dev, card)
+    del outs
+    for k in cuda_lib.MAIN_PATH:
+        kernels[k]["by_path"].update(wide_paths[k])
 
     # ---- K3, K4, K5 on the extension bench path --------------------------------
     t0 = time.time()

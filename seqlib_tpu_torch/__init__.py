@@ -2,7 +2,8 @@
 
 Short-read, long-read and paired alignment (seed, locate, chain, banded
 extension, dedup, global DP and traceback, native SAM/BAM emission) on
-an NVIDIA Hopper GPU, BFC and string-graph assembly, SAM/BAM/CRAM file
+an NVIDIA Hopper GPU, on indexes of any size (int64 ranks past a 2L text
+of 2^31) and on sharded indexes, BFC and string-graph assembly, SAM/BAM/CRAM file
 I/O, bwa's index files, interval collections, the JSON read-filter
 engine, coverage and BAM statistics, ASCII plots and the ``seqtools``
 command line (``python -m seqlib_tpu_torch.cli``).  The package mirrors

@@ -3,6 +3,8 @@
 from .aligner import AlnReg, BWAAligner, FusedOverflowError
 from .chain import Chain, chain_seeds, filter_chains
 from .options import AlignerOptions
+from .sharded import ShardedBWAAligner
 
-__all__ = ["BWAAligner", "AlnReg", "Chain", "chain_seeds", "filter_chains",
-           "AlignerOptions", "FusedOverflowError"]
+__all__ = ["BWAAligner", "ShardedBWAAligner", "AlnReg", "Chain",
+           "chain_seeds", "filter_chains", "AlignerOptions",
+           "FusedOverflowError"]

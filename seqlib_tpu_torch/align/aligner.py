@@ -18,11 +18,19 @@ uncompacted re-extension, host dedup and primary marking, then
 JAX package does; ``stats["fused_overflow_fallback"]`` counts it.
 
 ``align_batch`` (and so ``align_sequence``) sends a batch holding a read
-longer than ``LONG_READ_BP`` down the long-read path: seeding on K2,
+longer than ``BWAAligner.LONG_READ_BP`` (a class attribute, read through
+the instance, so a subclass or an instance may move the cut-over) down
+the long-read path: seeding on K2,
 SA locate, host chaining (``align.chain``), extension on K1, then the
 classic path's dedup, global DP and records.  ``align_batch_bam`` and
 ``align_stream_bam`` raise :class:`FusedOverflowError` for such reads,
 as the JAX package's native emission does not route them either.
+
+An index whose 2L text is 2^31 or more (or any index, with
+``wide=True``) runs the same code with int64 checkpoint rows, K2's
+int64 instantiation and an int64 region block (``ops.fm``,
+``device_full``); the JAX package's hi/lo twins of these modules have no
+counterpart here, as the card has native int64.
 """
 
 from __future__ import annotations
@@ -58,7 +66,6 @@ MAX_OCC_LOCATE = 16     # occurrences located per seed
 MAX_CHAINS = 4          # chains extended per read
 REGION_SLOTS = MAX_CHAINS + ESC_SLOTS
 MAX_REGS = 8            # alignment regions kept per read (classic path)
-LONG_READ_BP = 1024     # the fused path's packed chain keys cap reads here
 # the global DP's direction matrix is M x Lq x (Lt + 1) bytes: regions go
 # through it in groups of at most this many bytes (rows are independent)
 GLOBAL_DP_BYTES = 4 << 30
@@ -66,14 +73,19 @@ GLOBAL_DP_BYTES = 4 << 30
 
 class FusedOverflowError(RuntimeError):
     """A batch given to ``align_batch_bam`` or ``align_stream_bam`` holds
-    reads longer than LONG_READ_BP: the fused path's packed chain keys
-    cannot order them.  ``align_batch`` takes such reads.  Nothing is
-    returned."""
+    reads longer than the aligner's ``LONG_READ_BP``: past 1024 bp the
+    fused path's packed chain keys cannot order them.  ``align_batch``
+    takes such reads.  Nothing is returned."""
 
 
 @dataclass
 class AlnReg:
-    """mem_alnreg_t equivalent (coordinates in 2L text space)."""
+    """mem_alnreg_t equivalent (coordinates in 2L text space).
+
+    ``shard``/``gb``/``ge`` are used only by the sharded-index path
+    (``align.sharded``): rb/re stay shard-local (they index that shard's
+    text) while gb/ge are global pseudo-2L keys for the cross-shard
+    dedup and overlap tests."""
     rb: int
     re: int
     qb: int
@@ -85,6 +97,9 @@ class AlnReg:
     csub: int = 0
     sub_n: int = 0
     secondary: int = -1
+    shard: int = 0
+    gb: int = 0
+    ge: int = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -154,19 +169,22 @@ class BWAAligner:
 
     ``device`` is where the device program runs: ``"cuda"`` (default,
     the hand-written kernels) or ``"cpu"`` (their plain PyTorch
-    versions).  Scoring options are set through the ``set_*`` methods
+    versions).  ``wide`` picks the int64 index path: by default an index
+    whose 2L text is 2^31 or more takes it, and ``wide=True`` forces it
+    on any index.  Scoring options are set through the ``set_*`` methods
     (reference-style names) or ``self.options``."""
 
+    LONG_READ_BP = 1024   # the fused path's packed chain keys cap reads here
+
     def __init__(self, index, options: AlignerOptions | None = None,
-                 device="cuda"):
+                 wide: bool | None = None, device="cuda"):
         self.device = resolve_device(device)
-        if index.seq_len >= 2**31:
-            raise NotImplementedError(
-                "indexes with a 2L text of 2^31 or more are not ported yet")
         self.index = index
         self.options = options or AlignerOptions()
+        self.wide = index.seq_len >= 2**31 if wide is None else bool(wide)
         self.text = both_strands(index.ref.codes)
-        self.fm = DeviceFMIndex.from_host(index, device=self.device)
+        self.fm = DeviceFMIndex.from_host(index, device=self.device,
+                                          wide=self.wide)
         self.text_t = torch.from_numpy(self.text).to(self.device)
         # truncation telemetry; align_stream_bam's host threads update it
         self.stats = dict(seeds_at_cap=0, occ_clipped=0, chains_at_cap=0,
@@ -179,6 +197,11 @@ class BWAAligner:
         self._ann_lens = index.contig_lengths()
         self._names = index.contig_names()
         self._ref_blob_cache = None
+
+    @property
+    def n_shards(self) -> int:
+        """Devices a batch is split over: 1 (one card)."""
+        return 1
 
     def reset_stats(self):
         with self._stats_lock:
@@ -222,9 +245,9 @@ class BWAAligner:
     def _dispatch_full(self, enc: np.ndarray, lens: np.ndarray):
         """Run the whole device program for one encoded batch; returns
         (regions, snm, ops) tensors on the aligner's device."""
-        if int(lens.max(initial=0)) > LONG_READ_BP:
+        if int(lens.max(initial=0)) > self.LONG_READ_BP:
             raise FusedOverflowError(
-                f"reads longer than {LONG_READ_BP} bp exceed the fused "
+                f"reads longer than {self.LONG_READ_BP} bp exceed the fused "
                 "path's packed chain keys: align them with align_batch, "
                 "which routes them through the long-read path")
         opt = self.options
@@ -259,19 +282,26 @@ class BWAAligner:
     # classic path: per-read regions, host dedup, global DP per region
     # ------------------------------------------------------------------
 
-    def _collect_regions(self, enc: np.ndarray, lens: np.ndarray,
-                         dedup: bool = True) -> list[list[AlnReg]]:
-        """enc [B, L] nt4 codes (4-padded) -> per-read region lists
-        (deduped, primary/secondary marked): one ``seed_chain_extend``
-        (seed, locate, chain, compacted extension), then, when the batch
-        has more non-trivial chains than DP rows, an uncompacted
-        re-extension of every kept chain."""
-        B = enc.shape[0]
+    def _dispatch_stage1(self, enc: np.ndarray, lens: np.ndarray) -> dict:
+        """One ``seed_chain_extend`` (seed, locate, chain, compacted
+        extension) of an encoded batch; its tensors stay on the
+        aligner's device."""
         dev = self.device
-        out = seed_chain_extend(
+        return seed_chain_extend(
             self.fm, self.text_t, torch.from_numpy(enc).to(dev),
             torch.from_numpy(lens.astype(np.int64)).to(dev),
             **self._stage1_kwargs())
+
+    def _collect_regions(self, enc: np.ndarray, lens: np.ndarray,
+                         dedup: bool = True, stage1: dict | None = None
+                         ) -> list[list[AlnReg]]:
+        """enc [B, L] nt4 codes (4-padded) -> per-read region lists
+        (deduped, primary/secondary marked): ``_dispatch_stage1`` (or
+        ``stage1``, its result), then, when the batch has more
+        non-trivial chains than DP rows, an uncompacted re-extension of
+        every kept chain."""
+        B = enc.shape[0]
+        out = self._dispatch_stage1(enc, lens) if stage1 is None else stage1
         out = {k: v.cpu().numpy() if torch.is_tensor(v) else v
                for k, v in out.items()}
         frac_reps = out["rep_cov"] / np.maximum(lens, 1)
@@ -335,7 +365,7 @@ class BWAAligner:
         return qb, qe, rb, re, score
 
     # ------------------------------------------------------------------
-    # long-read path (> LONG_READ_BP): device seeding, host chaining
+    # long-read path (> self.LONG_READ_BP): device seeding, host chaining
     # ------------------------------------------------------------------
 
     def _collect_regions_long(self, enc: np.ndarray, lens: np.ndarray
@@ -400,18 +430,27 @@ class BWAAligner:
                                        keep_sec_frac, max_secondary)
                 for b in range(B)]
 
-    def _dedup_and_mark(self, regs: list[AlnReg]) -> list[AlnReg]:
-        """mem_sort_dedup + mem_mark_primary_se semantics."""
+    def _dedup_and_mark(self, regs: list[AlnReg], key=None) -> list[AlnReg]:
+        """mem_sort_dedup + mem_mark_primary_se semantics.  ``key(r) ->
+        (kb, ke)`` is the reference interval of the overlap tests: the
+        region's own (rb, re) by default, global pseudo-2L keys on a
+        sharded index."""
         opt = self.options
-        # dedup near-identical regions, walking (-score, rb, qb, re)
-        regs = sorted(regs, key=lambda r: (-r.score, r.rb, r.qb, r.re))
+        if key is None:
+            def key(r):
+                return r.rb, r.re
+        # dedup near-identical regions, walking (-score, kb, qb, ke)
+        regs = sorted(regs, key=lambda r: (-r.score, key(r)[0], r.qb,
+                                           key(r)[1]))
         out: list[AlnReg] = []
         for r in regs:
             dup = False
+            krb, kre = key(r)
             for o in out:
-                if max(r.rb, o.rb) < min(r.re, o.re):
-                    inter = min(r.re, o.re) - max(r.rb, o.rb)
-                    minw = min(r.re - r.rb, o.re - o.rb)
+                okb, oke = key(o)
+                if max(krb, okb) < min(kre, oke):
+                    inter = min(kre, oke) - max(krb, okb)
+                    minw = min(kre - krb, oke - okb)
                     if inter >= opt.mask_level_redun * minw \
                             and max(r.qb, o.qb) < min(r.qe, o.qe):
                         dup = True
@@ -937,10 +976,11 @@ class BWAAligner:
                     max_secondary: int = 10) -> list[list[BamRecord]]:
         """Align a batch of reads; returns per-read BamRecord lists (MAPQ
         sort, keepSecFrac/maxSecondary filters, clip rewrite, XA).  A
-        batch with a read over LONG_READ_BP takes the long-read path."""
+        batch with a read over ``self.LONG_READ_BP`` takes the long-read
+        path."""
         if not seqs:
             return []
-        if max(len(s) for s in seqs) > LONG_READ_BP:
+        if max(len(s) for s in seqs) > self.LONG_READ_BP:
             return self._align_batch_long(seqs, names, hardclip,
                                           keep_sec_frac, max_secondary)
         _Read = collections.namedtuple("_Read", "name seq")

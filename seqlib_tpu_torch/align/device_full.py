@@ -7,6 +7,12 @@ seqlib_tpu/align/device_full.py).
 global-DP rows and runs the banded global DP with its traceback.  The
 host keeps only float64 MAPQ, T filtering, contig resolution and
 record emission.
+
+One program serves narrow and wide indexes: positions are int64
+throughout, and the region block comes back int32 on a narrow index and
+int64 on a wide one (``fm.wide``), in the same 10-field layout, so the
+host reads both through one path (the JAX package's wide twin,
+``device_full_wide.py``, splits rb/re into hi/lo planes instead).
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .device_pipeline import dp_rows, global_and_traceback, \
+from .device_pipeline import POS_BIG, dp_rows, global_and_traceback, \
     seed_chain_extend, OP_NONE
 
 # field indices of the per-region output block
@@ -54,10 +60,10 @@ def _resort(order, key):
 def _dedup_walk_order(score, rb, qb, re, valid):
     """Per-read dedup walk order (-score, rb, qb, re), invalid last."""
     BIG = 0x3FFFFFFF
-    order = torch.sort(torch.where(valid, re, BIG), dim=1,
+    order = torch.sort(torch.where(valid, re, POS_BIG), dim=1,
                        stable=True).indices
     order = _resort(order, torch.where(valid, qb, BIG))
-    order = _resort(order, torch.where(valid, rb, BIG))
+    order = _resort(order, torch.where(valid, rb, POS_BIG))
     order = _resort(order, torch.where(valid, -score, BIG))
     return order
 
@@ -94,8 +100,9 @@ def align_full(fm, text, enc_lens, l_pac: int,
     """enc_lens: uint8 [B, L+4] — nt4 codes with the read length packed
     little-endian into the last 4 columns.
 
-    Returns (regions int32 [B, S*NFIELD + 8] with S = max_chains +
-    ESC_SLOTS region slots, snm int32 [M2, 2], ops uint8 [M2, Tp/4])."""
+    Returns (regions [B, S*NFIELD + 8] with S = max_chains + ESC_SLOTS
+    region slots, int32 on a narrow index and int64 on a wide one, snm
+    int32 [M2, 2], ops uint8 [M2, Tp/4])."""
     B = enc_lens.shape[0]
     L = enc_lens.shape[1] - 4
     dev = enc_lens.device
@@ -228,4 +235,4 @@ def align_full(fm, text, enc_lens, l_pac: int,
         torch.full((B,), out["n_dp"], dtype=I64, device=dev),
         out["esc_over"].to(I64)], dim=1)
     regions = torch.cat([fields.reshape(B, C * NFIELD), extra], dim=1)
-    return regions.to(I32), snm, ops
+    return regions.to(I64 if fm.wide else I32), snm, ops

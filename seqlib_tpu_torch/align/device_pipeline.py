@@ -27,6 +27,9 @@ OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
 
 # per-seed second-extension slots appended to the max_chains region slots
 ESC_SLOTS = 3
+# sentinel text position: past every position of any index (positions are
+# int64 on both the narrow and the wide path)
+POS_BIG = 1 << 62
 
 I32 = torch.int32
 I64 = torch.int64
@@ -53,8 +56,8 @@ def seed_and_locate(fm: DeviceFMIndex, reads, lens,
                     max_mem_intv: int = 20, p3_seeds: int = 8):
     """Seed scan (all three bwa passes) + SA locate.
 
-    Returns dict: qbeg, qend [B, S1]; pos [B, S1, K] text positions (-1
-    invalid); rep_cov, occ_clip, seeds_full [B]."""
+    Returns dict: qbeg, qend [B, S1]; pos [B, S1, K] int64 text positions
+    (-1 invalid); rep_cov, occ_clip, seeds_full [B]."""
     B = reads.shape[0]
     dev = reads.device
     p3 = p3_seeds if max_mem_intv > 0 else 0
@@ -139,7 +142,7 @@ def chain_device(qb_all, qe_all, pos, l_pac: int, band: int = 100,
     ovalid = (opos >= 0) & ~((opos < l_pac) & (opos + olen > l_pac))
     strand = torch.where(ovalid, (opos >= l_pac).to(I64), 3)
     diag = torch.where(ovalid, opos - oqb, 0)
-    spos = torch.where(ovalid, opos, 2**30)
+    spos = torch.where(ovalid, opos, POS_BIG)
     order = _stable_order(strand, diag, spos)
     s_strand = strand.gather(1, order)
     s_diag = diag.gather(1, order)
@@ -168,7 +171,7 @@ def chain_device(qb_all, qe_all, pos, l_pac: int, band: int = 100,
     len_sum = agg(torch.where(s_valid, s_len, 0), "sum", 0)
     qb_min = agg(torch.where(s_valid, s_qb, BIG), "amin", BIG)
     qe_max = agg(torch.where(s_valid, s_qb + s_len, -1), "amax", -1)
-    rb_min = agg(torch.where(s_valid, s_pos, BIG), "amin", BIG)
+    rb_min = agg(torch.where(s_valid, s_pos, POS_BIG), "amin", POS_BIG)
     re_max = agg(torch.where(s_valid, s_pos + s_len, -1), "amax", -1)
     anchor = agg(torch.where(
         s_valid, (s_len << 19) | ((1023 - s_qb) << 9) | (511 - n_idx), -1),

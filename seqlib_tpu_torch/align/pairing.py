@@ -320,15 +320,23 @@ def align_pairs(aligner, seqs1: list[str], seqs2: list[str],
     pair flags, mates and TLEN.
 
     Returns (records1, records2, stats); pass ``stats`` back in for later
-    batches of the same library to keep its distribution."""
+    batches of the same library to keep its distribution.  A sharded
+    aligner has no single 2L space: its pairs get flags, mates and TLEN
+    only (no inference, no rescue), and stats comes back None."""
     out1 = aligner.align_batch(seqs1, names, hardclip=hardclip,
                                keep_sec_frac=keep_sec_frac,
                                max_secondary=max_secondary)
     out2 = aligner.align_batch(seqs2, names, hardclip=hardclip,
                                keep_sec_frac=keep_sec_frac,
                                max_secondary=max_secondary)
-    l_pac = aligner.index.l_pac
-    offs = aligner._ann_offs
+    l_pac = getattr(aligner.index, "l_pac", None)
+    offs = getattr(aligner, "_ann_offs", None)
+    if l_pac is None or offs is None:
+        for recs1, recs2 in zip(out1, out2):
+            mark_supplementary(recs1)
+            mark_supplementary(recs2)
+            pair_up(recs1, recs2)
+        return out1, out2, None
     if stats is None:
         stats = infer_isize_stats(zip(out1, out2), l_pac, offs)
     if rescue and stats.enabled():

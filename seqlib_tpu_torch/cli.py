@@ -17,9 +17,15 @@ package's.
 ``--device`` (default ``cuda``) is where the aligner, BFC and the
 assembler run; without a GPU the default fails, and ``--device cpu``
 runs the plain PyTorch versions of the kernels.  ``-b`` writes BAM,
-``-C`` reference-free CRAM, and SAM otherwise.  Indexes over
-DEFAULT_MAX_SHARD_BP bases (which the JAX package shards) are refused.
-Errors print ``seqtools: error: ...`` and exit 1.
+``-C`` reference-free CRAM, and SAM otherwise.
+
+A reference over ``index.sharded.DEFAULT_MAX_SHARD_BP`` bases is
+sharded, as the JAX CLI does: ``index`` writes ``<ref>.shard<k>.*`` and
+a ``<ref>.shards`` manifest, ``align -G`` opens a ``.shards`` prefix (or
+builds a sharded index from such a FASTA) with ``ShardedBWAAligner``,
+whose pairs get flags and mates only (no mate rescue), and a
+monolithic index of bwa's files past the bound is refused.  Errors
+print ``seqtools: error: ...`` and exit 1.
 """
 
 from __future__ import annotations
@@ -28,20 +34,15 @@ import argparse
 import os
 import sys
 
-from .align import BWAAligner
+from .align import BWAAligner, ShardedBWAAligner
 from .align.pairing import mark_supplementary
 from .assembly import BFC, FermiAssembler
 from .core.unaligned import UnalignedSequence
 from .device import resolve_device
-from .index import FMIndex
+from .index import FMIndex, ShardedFMIndex
+from .index import sharded as _sharded
 from .index.bwa_files import read_ann
 from .io import BAM, CRAM, SAM, BamReader, BamWriter, FastqReader
-
-# the JAX package shards a reference over this many bases
-DEFAULT_MAX_SHARD_BP = 1_000_000_000
-
-_NOT_SHARDED = ("sharded indexes are not ported yet (ROADMAP.md section 1, "
-                "item 6)")
 
 
 def _read_input(args) -> list[UnalignedSequence]:
@@ -113,31 +114,33 @@ def _has_index(prefix: str) -> bool:
 
 
 def _open_aligner(reference: str, device):
-    """(index, aligner) for a reference: bwa's index files beside it when
-    they are there, else an index built from the FASTA."""
+    """(index, aligner) for a reference: a sharded index when a
+    ``.shards`` manifest is beside it, else bwa's index files, else an
+    index built from the FASTA (sharded past the bound)."""
+    bound = _sharded.DEFAULT_MAX_SHARD_BP
     if os.path.exists(reference + ".shards"):
-        raise NotImplementedError(f"{reference}.shards: {_NOT_SHARDED}")
+        sidx = ShardedFMIndex.load(reference)
+        return sidx, ShardedBWAAligner(sidx, devices=[device])
     if _has_index(reference):
         l_pac = read_ann(reference + ".ann")[0]
-        if l_pac > DEFAULT_MAX_SHARD_BP:
-            raise NotImplementedError(
-                f"index {reference} spans {l_pac} bp > "
-                f"{DEFAULT_MAX_SHARD_BP}: {_NOT_SHARDED}")
+        if l_pac > bound:
+            raise ValueError(
+                f"index {reference} spans {l_pac} bp > device bound "
+                f"{bound}; rebuild it sharded with 'seqtools index' "
+                "(writes a .shards manifest)")
         idx = FMIndex.load(reference)
-    else:
-        idx = FMIndex.construct(_load_fasta(reference))
+        return idx, BWAAligner(idx, device=device)
+    seqs = _load_fasta(reference)
+    if sum(len(s) for _, s in seqs) > bound:
+        sidx = ShardedFMIndex.construct(seqs)
+        return sidx, ShardedBWAAligner(sidx, devices=[device])
+    idx = FMIndex.construct(seqs)
     return idx, BWAAligner(idx, device=device)
 
 
 def _load_fasta(path: str):
-    """(name, seq) pairs of a FASTA, refused past DEFAULT_MAX_SHARD_BP."""
-    seqs = [(r.name, r.seq) for r in FastqReader(path)]
-    total = sum(len(s) for _, s in seqs)
-    if total > DEFAULT_MAX_SHARD_BP:
-        raise NotImplementedError(
-            f"{path} holds {total} bp > {DEFAULT_MAX_SHARD_BP}: "
-            f"{_NOT_SHARDED}")
-    return seqs
+    """(name, seq) pairs of a FASTA."""
+    return [(r.name, r.seq) for r in FastqReader(path)]
 
 
 def run_bfc(args) -> None:
@@ -199,10 +202,12 @@ def _run_align_paired(args) -> None:
     B = 512
     n = 0
     stats = None
+    rescue_capable = hasattr(aln, "text")   # sharded: flags only
     for i in range(0, len(r1), B):
         out1, out2, stats = align_pairs(
             aln, [u.seq for u in r1[i:i + B]], [u.seq for u in r2[i:i + B]],
-            [u.name for u in r1[i:i + B]], stats=stats)
+            [u.name for u in r1[i:i + B]], stats=stats,
+            rescue=rescue_capable)
         for recs1, recs2 in zip(out1, out2):
             for r in recs1 + recs2:
                 w.write_record(r)
@@ -214,8 +219,17 @@ def _run_align_paired(args) -> None:
 
 def run_index(args) -> None:
     """Build the FM-index of a FASTA and write bwa's five files beside
-    it."""
-    idx = FMIndex.construct(_load_fasta(args.fasta_file))
+    it; past the bound, a sharded index and its manifest."""
+    seqs = _load_fasta(args.fasta_file)
+    total = sum(len(s) for _, s in seqs)
+    if total > _sharded.DEFAULT_MAX_SHARD_BP:
+        sidx = ShardedFMIndex.construct(seqs)
+        sidx.write(args.fasta_file)
+        print(f"indexed {args.fasta_file} ({sidx.num_sequences()} "
+              f"sequences, {total} bp, {sidx.n_shards} shards)",
+              file=sys.stderr)
+        return
+    idx = FMIndex.construct(seqs)
     idx.write(args.fasta_file)
     print(f"indexed {args.fasta_file} "
           f"({idx.num_sequences()} sequences, {idx.l_pac} bp)",

@@ -46,9 +46,19 @@
 // Seeds and pass-3 hits are written by thread 0, at the same rows and in
 // the same order as the plain version.  A read stops after step_cap steps; one
 // still busy then counts in n_dropped, as in the plain version.
+//
+// Two instantiations, by rank type R.  int32 (smem_machine) reads the
+// narrow index's 48-byte rows: 4 uint32 checkpoints, 8 BWT words.  int64
+// (smem_machine_wide) reads the wide index's 64-byte rows: 4 int64
+// checkpoints, then the same 8 words, for 2L texts of 2^31 or more; its
+// intervals, ranks and stack slots are int64, the interval starts it
+// writes are int64 and the sizes are clamped to int32 as in the plain
+// version.  Row addressing is size_t in both (a 2L text past 2^31 has
+// over 2^24 rows and over 2^32 bytes of them).
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <climits>
 
 namespace {
 
@@ -57,12 +67,38 @@ constexpr int MAXC = 16;
 constexpr int WARPS = 4;  // reads (warps) per block
 constexpr unsigned FULL = 0xffffffffu;
 
+template <typename R>
 struct Params {
-  int L, primary, S, C, min_seed_len, max_rounds, step_cap, P3,
-      p3_max_intv;
-  int L2[5];
+  int L, S, C, min_seed_len, max_rounds, step_cap, P3, p3_max_intv;
+  R primary;
+  R L2[5];
   int l_pad;  // a warp's shared-memory bytes for the read
 };
+
+// uint32 words a checkpoint row spans, and the word its BWT words start at
+template <typename R> struct Row;
+template <> struct Row<int32_t> { static constexpr int WORDS = 12, BWT = 4; };
+template <> struct Row<int64_t> { static constexpr int WORDS = 16, BWT = 8; };
+
+// the four checkpoint counts of a row
+__device__ __forceinline__ void load_counts(const uint32_t* row,
+                                            int32_t (&c)[4]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
+  c[0] = (int32_t)v.x; c[1] = (int32_t)v.y;
+  c[2] = (int32_t)v.z; c[3] = (int32_t)v.w;
+}
+__device__ __forceinline__ void load_counts(const uint32_t* row,
+                                            int64_t (&c)[4]) {
+  const longlong2* r2 = reinterpret_cast<const longlong2*>(row);
+  const longlong2 a = __ldg(r2), b = __ldg(r2 + 1);
+  c[0] = a.x; c[1] = a.y; c[2] = b.x; c[3] = b.y;
+}
+
+// an interval size as the int32 the outputs hold
+template <typename R>
+__device__ __forceinline__ int32_t sz32(R v) {
+  return (int32_t)(v > (R)INT32_MAX ? (R)INT32_MAX : v);
+}
 
 // counts of the four 2-bit codes among the first tt (0..16) bases of one
 // BWT word (first base in the top bits), one byte per code
@@ -79,17 +115,17 @@ __device__ __forceinline__ uint32_t word_counts(uint32_t word, int tt) {
   return packed;
 }
 
-template <bool STAGED>
+template <typename R, bool STAGED>
 __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
     const uint32_t* __restrict__ blocks, const uint8_t* __restrict__ reads,
     const int32_t* __restrict__ lens_v, const int32_t* __restrict__ x0_v,
     const int32_t* __restrict__ min_intv_v,
-    const uint8_t* __restrict__ active_v, int B, Params p,
+    const uint8_t* __restrict__ active_v, int B, Params<R> p,
     int32_t* __restrict__ o_qb, int32_t* __restrict__ o_qe,
-    int32_t* __restrict__ o_il, int32_t* __restrict__ o_isz,
+    R* __restrict__ o_il, int32_t* __restrict__ o_isz,
     int32_t* __restrict__ o_n, int32_t* __restrict__ o_drop,
     int32_t* __restrict__ p_qb, int32_t* __restrict__ p_qe,
-    int32_t* __restrict__ p_il, int32_t* __restrict__ p_isz,
+    R* __restrict__ p_il, int32_t* __restrict__ p_isz,
     int32_t* __restrict__ p_n) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x >> 5;
@@ -106,13 +142,13 @@ __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
   }
   int32_t* qb_o = o_qb + (size_t)b * S;
   int32_t* qe_o = o_qe + (size_t)b * S;
-  int32_t* il_o = o_il + (size_t)b * S;
+  R* il_o = o_il + (size_t)b * S;
   int32_t* isz_o = o_isz + (size_t)b * S;
   for (int j = t; j < S; j += 32) {
     qb_o[j] = 0; qe_o[j] = 0; il_o[j] = 0; isz_o[j] = 0;
   }
-  int32_t *pqb_o = nullptr, *pqe_o = nullptr, *pil_o = nullptr,
-          *pisz_o = nullptr;
+  int32_t *pqb_o = nullptr, *pqe_o = nullptr, *pisz_o = nullptr;
+  R* pil_o = nullptr;
   if (P3) {
     pqb_o = p_qb + (size_t)b * P3;
     pqe_o = p_qe + (size_t)b * P3;
@@ -132,11 +168,15 @@ __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
   const int min_intv = min_intv_v[b];
   int x = x0_v[b];
   int mode = (active_v[b] && x < len) ? M_INIT : M_DONE;
-  int nx = 0, i = 0, k = 0, l = 0, s = 0, end = 0, sn = 0;
-  int bj = 0, bk = 0, bl = 0, bs = 0, be = 0, last_i = 0, rounds = 0;
+  int nx = 0, i = 0, end = 0, sn = 0;
+  R k = 0, l = 0, s = 0;
+  int bj = 0, be = 0, last_i = 0, rounds = 0;
+  R bk = 0, bl = 0, bs = 0;
   int n = 0, nfull = 0;
-  int sk = 0, sl = 0, ss = 0, se = 0;  // stack slot t (t < C)
-  int px = 0, pi = 0, pk = 0, pl = 0, ps = 0, pn = 0;
+  R sk = 0, sl = 0, ss = 0;  // stack slot t (t < C)
+  int se = 0;
+  int px = 0, pi = 0, pn = 0;
+  R pk = 0, pl = 0, ps = 0;
   bool pneed = true, pdone = !P3 || len <= 0;
   const int rank_id = t >> 3;  // the rank this thread helps compute
   const int wi = t & 7;        // the BWT word of its block row
@@ -178,58 +218,58 @@ __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
     const bool ch_ok = ch < 4;
     const bool m_rank = (is_fwd || is_bwd) && ch_ok;
     // FWD extends (l, k, s) and swaps; BWD extends (bk, bl, bs)
-    const int ma = is_fwd ? l : bk;
-    const int mb = is_fwd ? k : bl;
-    const int msz = is_fwd ? s : bs;
+    const R ma = is_fwd ? l : bk;
+    const R mb = is_fwd ? k : bl;
+    const R msz = is_fwd ? s : bs;
     const int mcc = is_fwd ? min(max(3 - ch, 0), 3) : min(ch, 3);
 
     // ---- one load round for every rank of the step ------------------
     // ranks 0, 1: main at ma, ma + msz; ranks 2, 3: pass 3 at pl, pl + ps
-    int mK = 0, mL = 0, mS = 0, pK = 0, pL = 0, pS = 0;
+    R mK = 0, mL = 0, mS = 0, pK = 0, pL = 0, pS = 0;
     if (m_rank || p_rank) {
       const bool need = rank_id < 2 ? m_rank : p_rank;
-      const int pos = rank_id == 0 ? ma
-                    : rank_id == 1 ? ma + msz
-                    : rank_id == 2 ? pl : pl + ps;
-      const int kk = pos - (pos > p.primary ? 1 : 0);
-      const int tt = min(max((kk & 127) - 16 * wi, 0), 16);
-      uint4 c4 = make_uint4(0u, 0u, 0u, 0u);
+      const R pos = rank_id == 0 ? ma
+                  : rank_id == 1 ? ma + msz
+                  : rank_id == 2 ? pl : pl + ps;
+      const R kk = pos - (pos > p.primary ? 1 : 0);
+      const int tt = min(max((int)(kk & 127) - 16 * wi, 0), 16);
+      R c4[4] = {0, 0, 0, 0};
       uint32_t word = 0u;
       if (need) {
-        const uint32_t* row = blocks + (size_t)(kk >> 7) * 12;
-        c4 = __ldg(reinterpret_cast<const uint4*>(row));
-        if (tt > 0) word = __ldg(row + 4 + wi);
+        const uint32_t* row = blocks + (size_t)(kk >> 7) * Row<R>::WORDS;
+        load_counts(row, c4);
+        if (tt > 0) word = __ldg(row + Row<R>::BWT + wi);
       }
       uint32_t packed = word_counts(word, tt);
       packed += __shfl_xor_sync(FULL, packed, 4, 8);
       packed += __shfl_xor_sync(FULL, packed, 2, 8);
       packed += __shfl_xor_sync(FULL, packed, 1, 8);
-      const int cnt[4] = {(int)(c4.x + (packed & 0xFFu)),
-                          (int)(c4.y + ((packed >> 8) & 0xFFu)),
-                          (int)(c4.z + ((packed >> 16) & 0xFFu)),
-                          (int)(c4.w + (packed >> 24))};
+      const R cnt[4] = {c4[0] + (R)(packed & 0xFFu),
+                        c4[1] + (R)((packed >> 8) & 0xFFu),
+                        c4[2] + (R)((packed >> 16) & 0xFFu),
+                        c4[3] + (R)(packed >> 24)};
       // the selected code's count and the counts of the codes above it
       const int cc = rank_id < 2 ? mcc : pcc;
-      int sel = 0, above = 0;
+      R sel = 0, above = 0;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         if (c == cc) sel = cnt[c];
         if (c > cc) above += cnt[c];
       }
-      const int tk = __shfl_sync(FULL, sel, 0);
-      const int tl = __shfl_sync(FULL, sel, 8);
-      const int ak = __shfl_sync(FULL, above, 0);
-      const int al = __shfl_sync(FULL, above, 8);
-      const int ptk = __shfl_sync(FULL, sel, 16);
-      const int ptl = __shfl_sync(FULL, sel, 24);
-      const int pak = __shfl_sync(FULL, above, 16);
-      const int pal = __shfl_sync(FULL, above, 24);
+      const R tk = __shfl_sync(FULL, sel, 0);
+      const R tl = __shfl_sync(FULL, sel, 8);
+      const R ak = __shfl_sync(FULL, above, 0);
+      const R al = __shfl_sync(FULL, above, 8);
+      const R ptk = __shfl_sync(FULL, sel, 16);
+      const R ptl = __shfl_sync(FULL, sel, 24);
+      const R pak = __shfl_sync(FULL, above, 16);
+      const R pal = __shfl_sync(FULL, above, 24);
       // FMD backward extension of (a, b, sz) by code cc: K, L, S
-      const int m_sent = (ma <= p.primary && p.primary < ma + msz) ? 1 : 0;
+      const R m_sent = (ma <= p.primary && p.primary < ma + msz) ? 1 : 0;
       mK = p.L2[mcc] + 1 + tk;
       mS = tl - tk;
       mL = mb + m_sent + (al - ak);
-      const int p_sent = (pl <= p.primary && p.primary < pl + ps) ? 1 : 0;
+      const R p_sent = (pl <= p.primary && p.primary < pl + ps) ? 1 : 0;
       pK = p.L2[pcc] + 1 + ptk;
       pS = ptl - ptk;
       pL = pk + p_sent + (pal - pak);
@@ -239,14 +279,14 @@ __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
     if (p_live) {
       if (p_ext) {
         int restart = 0;
-        const int pnk = pL, pnl = pK, pns = pS;
+        const R pnk = pL, pnl = pK, pns = pS;
         if (pch < 4) {
           const bool hit = pns < p.p3_max_intv && pi - px >= p.min_seed_len;
           if (hit) {
             if (pns > 0 && pn < P3) {
               if (t == 0) {
                 pqb_o[pn] = px; pqe_o[pn] = pi + 1;
-                pil_o[pn] = pnk; pisz_o[pn] = pns;
+                pil_o[pn] = pnk; pisz_o[pn] = sz32(pns);
               }
               ++pn;
             }
@@ -267,9 +307,9 @@ __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
     }
 
     // ---- SMEM machine: FWD / BWD step --------------------------------
-    const int nk = is_fwd ? mL : mK;
-    const int nl = is_fwd ? mK : mL;
-    const int ns = mS;
+    const R nk = is_fwd ? mL : mK;
+    const R nl = is_fwd ? mK : mL;
+    const R ns = mS;
     // FWD reads
     const bool f_ok = is_fwd && ch_ok;
     const bool changed = f_ok && ns != s;
@@ -291,7 +331,8 @@ __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
     if (want) {
       if (n < S) {
         if (t == 0) {
-          qb_o[n] = e_start; qe_o[n] = be; il_o[n] = bk; isz_o[n] = bs;
+          qb_o[n] = e_start; qe_o[n] = be; il_o[n] = bk;
+          isz_o[n] = sz32(bs);
         }
         ++n;
         last_i = ip;
@@ -327,7 +368,7 @@ __global__ void __launch_bounds__(WARPS * 32) smem_warp_kernel(
       } else {
         const int c0 = fetch(x);
         const int c0c = min(c0, 3);
-        const int s0 = p.L2[c0c + 1] - p.L2[c0c];
+        const R s0 = p.L2[c0c + 1] - p.L2[c0c];
         if (c0 < 4 && s0 >= min_intv && s0 > 0) {
           mode = M_FWD;
           k = p.L2[c0c] + 1;
@@ -361,6 +402,58 @@ __global__ void load_chase_kernel(const int32_t* __restrict__ table,
   out[0] = r;
 }
 
+// one launch of the R instantiation; the read is staged in shared memory
+// when four of them fit the card's per-block shared memory, else read
+// from global memory
+template <typename R>
+int launch(const void* blocks, const void* reads, const void* lens,
+           const void* x0, const void* min_intv, const void* active, int B,
+           int L, R primary, const R* L2, int S, int C, int min_seed_len,
+           int max_rounds, int step_cap, int P3, int p3_max_intv, void* qb,
+           void* qe, void* il, void* isz, void* n_seeds, void* n_dropped,
+           void* pqb, void* pqe, void* pil, void* pisz, void* pn,
+           void* stream) {
+  if (C < 1 || C > MAXC) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  Params<R> p;
+  p.L = L; p.primary = primary; p.S = S; p.C = C;
+  p.min_seed_len = min_seed_len; p.max_rounds = max_rounds;
+  p.step_cap = step_cap; p.P3 = P3; p.p3_max_intv = p3_max_intv;
+  for (int c = 0; c < 5; ++c) p.L2[c] = L2[c];
+  p.l_pad = (L + 15) & ~15;
+  size_t smem = (size_t)WARPS * p.l_pad;
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&limit,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool staged = smem <= (size_t)limit;
+  auto kernel = staged ? smem_warp_kernel<R, true>
+                       : smem_warp_kernel<R, false>;
+  if (!staged) smem = 0;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int grid = (B + WARPS - 1) / WARPS;
+  kernel<<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(blocks),
+      static_cast<const uint8_t*>(reads),
+      static_cast<const int32_t*>(lens), static_cast<const int32_t*>(x0),
+      static_cast<const int32_t*>(min_intv),
+      static_cast<const uint8_t*>(active), B, p,
+      static_cast<int32_t*>(qb), static_cast<int32_t*>(qe),
+      static_cast<R*>(il), static_cast<int32_t*>(isz),
+      static_cast<int32_t*>(n_seeds), static_cast<int32_t*>(n_dropped),
+      static_cast<int32_t*>(pqb), static_cast<int32_t*>(pqe),
+      static_cast<R*>(pil), static_cast<int32_t*>(pisz),
+      static_cast<int32_t*>(pn));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int smem_machine_max_stack() { return MAXC; }
@@ -382,44 +475,25 @@ extern "C" int smem_machine(const void* blocks, const void* reads,
                             void* il, void* isz, void* n_seeds,
                             void* n_dropped, void* pqb, void* pqe, void* pil,
                             void* pisz, void* pn, void* stream) {
-  if (C < 1 || C > MAXC) return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0) return static_cast<int>(cudaGetLastError());
-  Params p;
-  p.L = L; p.primary = primary; p.S = S; p.C = C;
-  p.min_seed_len = min_seed_len; p.max_rounds = max_rounds;
-  p.step_cap = step_cap; p.P3 = P3; p.p3_max_intv = p3_max_intv;
-  for (int c = 0; c < 5; ++c) p.L2[c] = L2[c];
-  p.l_pad = (L + 15) & ~15;
-  // stage the reads when four of them fit the card's per-block shared
-  // memory, else read them from global memory
-  size_t smem = (size_t)WARPS * p.l_pad;
-  int dev = 0, limit = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&limit,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const bool staged = smem <= (size_t)limit;
-  auto kernel = staged ? smem_warp_kernel<true> : smem_warp_kernel<false>;
-  if (!staged) smem = 0;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int grid = (B + WARPS - 1) / WARPS;
-  kernel<<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(blocks),
-      static_cast<const uint8_t*>(reads),
-      static_cast<const int32_t*>(lens), static_cast<const int32_t*>(x0),
-      static_cast<const int32_t*>(min_intv),
-      static_cast<const uint8_t*>(active), B, p,
-      static_cast<int32_t*>(qb), static_cast<int32_t*>(qe),
-      static_cast<int32_t*>(il), static_cast<int32_t*>(isz),
-      static_cast<int32_t*>(n_seeds), static_cast<int32_t*>(n_dropped),
-      static_cast<int32_t*>(pqb), static_cast<int32_t*>(pqe),
-      static_cast<int32_t*>(pil), static_cast<int32_t*>(pisz),
-      static_cast<int32_t*>(pn));
-  return static_cast<int>(cudaGetLastError());
+  const int32_t l2[5] = {L2[0], L2[1], L2[2], L2[3], L2[4]};
+  return launch<int32_t>(blocks, reads, lens, x0, min_intv, active, B, L,
+                         primary, l2, S, C, min_seed_len, max_rounds,
+                         step_cap, P3, p3_max_intv, qb, qe, il, isz, n_seeds,
+                         n_dropped, pqb, pqe, pil, pisz, pn, stream);
+}
+
+// the wide index: int64 rows, primary and L2; il and pil are int64
+extern "C" int smem_machine_wide(
+    const void* blocks, const void* reads, const void* lens, const void* x0,
+    const void* min_intv, const void* active, int B, int L,
+    long long primary, const long long* L2, int S, int C, int min_seed_len,
+    int max_rounds, int step_cap, int P3, int p3_max_intv, void* qb,
+    void* qe, void* il, void* isz, void* n_seeds, void* n_dropped, void* pqb,
+    void* pqe, void* pil, void* pisz, void* pn, void* stream) {
+  const int64_t l2[5] = {L2[0], L2[1], L2[2], L2[3], L2[4]};
+  return launch<int64_t>(blocks, reads, lens, x0, min_intv, active, B, L,
+                         (int64_t)primary, l2, S, C, min_seed_len,
+                         max_rounds, step_cap, P3, p3_max_intv, qb, qe, il,
+                         isz, n_seeds, n_dropped, pqb, pqe, pil, pisz, pn,
+                         stream);
 }

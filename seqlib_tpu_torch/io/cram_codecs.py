@@ -66,10 +66,7 @@ def write_ltf8(v: int) -> bytes:
     v &= 0xFFFFFFFFFFFFFFFF
     if v < 0x80:
         return bytes([v])
-    n = 1
-    while v >= (1 << (7 * n + 8 * 0)) and n < 8:
-        n += 1
-    # encode with n leading 1-bits
+    # encode with k leading 1-bits
     for k in range(1, 9):
         if v < (1 << (7 - k + 8 * k)) or k == 8:
             prefix = (0xFF << (8 - k)) & 0xFF

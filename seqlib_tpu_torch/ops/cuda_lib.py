@@ -27,7 +27,7 @@ from ..native import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures (argument types) of each library's entry points
 SIGNATURES = {
     "sw_extend": {
@@ -37,6 +37,8 @@ SIGNATURES = {
     "smem_machine": {
         "smem_machine": [_VP] * 6 + [_CI] * 3 + [ctypes.POINTER(_CI)]
         + [_CI] * 7 + [_VP] * 11 + [_VP],
+        "smem_machine_wide": [_VP] * 6 + [_CI] * 2 + [_CL]
+        + [ctypes.POINTER(_CL)] + [_CI] * 7 + [_VP] * 11 + [_VP],
         "smem_machine_max_stack": [],
         "smem_load_chase": [_VP, _CI, _CI, _VP, _VP],
     },
@@ -118,18 +120,23 @@ def build_all() -> dict[str, str]:
             for n, job in jobs.items()}
 
 
+_TYPE_ARGS = {"i": "int32", "l": "int64"}
+
+
 def kernel_name(mangled: str) -> str:
     """kernel or kernel<S, ...> from an Itanium-mangled entry name: the
-    last <length><identifier> of its (nested) name, then its int and bool
-    template arguments if it has any."""
+    last <length><identifier> of its (nested) name, then its int32 /
+    int64 type and int and bool value template arguments if it has
+    any."""
     pos = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while (m := re.match(r"\d+", mangled[pos:])):
         pos += m.end()
         name = mangled[pos:pos + int(m.group())]
         pos += len(name)
-    tm = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
-    args = re.findall(r"L[ib](\d+)E", tm.group(1)) if tm else []
+    tm = re.match(r"I((?:[il]|L[ib]\d+E)+)E", mangled[pos:])
+    args = [_TYPE_ARGS.get(t, v) for t, v in
+            re.findall(r"([il])|L[ib](\d+)E", tm.group(1))] if tm else []
     return name + (f"<{', '.join(args)}>" if args else "")
 
 

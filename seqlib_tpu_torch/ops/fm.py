@@ -1,12 +1,19 @@
 """Device FM-index ops: rank, FMD bi-extension, SA locate and the SMEM
-seed machine (counterpart of seqlib_tpu/ops/fm.py).
+seed machine (counterpart of seqlib_tpu/ops/fm.py, and of
+seqlib_tpu/ops/fm_hilo.py and fm_wide.py for wide indexes).
 
 ``DeviceFMIndex.blocks`` holds, per 128-base block, the 4 occurrence
 checkpoints followed by the 8 packed BWT words (16 bases per word,
-first base in the top 2 bits), as the bits of unsigned 32-bit values in
-an int32 tensor: the CUDA kernel reads them as uint32, the plain
-PyTorch functions widen the gathered rows to int64 (PyTorch has no
-popcount and thin uint32 support) and count with a SWAR popcount.
+first base in the top 2 bits).  On a narrow index (2L text under 2^31)
+a row is 12 unsigned 32-bit values in an int32 tensor (48 bytes); on a
+wide one it is 8 int64 values (64 bytes): the 4 checkpoints as int64,
+then the 8 words, two to an int64 (word 2j in the low half), so its
+bytes are 4 int64 counts and then the 8 uint32 words.  The CUDA kernel
+reads either layout; the plain PyTorch functions widen a gathered row
+to 12 int64 values (PyTorch has no popcount and thin uint32 support)
+and count with a SWAR popcount.  Every rank, interval and position is
+int64 in the plain functions, so one code path serves both: the JAX
+package's hi/lo int32 pairs exist only because of the TPU.
 
 ``DeviceFMIndex.sa`` is the full suffix array of a constructed index
 (``sa_intv`` 1: a locate is one gather) or the rank-sampled one of an
@@ -16,7 +23,10 @@ sample, in plain PyTorch, as the JAX package does in XLA).
 ``_smem_machine`` is the plain version of kernel K2
 (``csrc/smem_machine.cu``); ``smem_collect`` and ``smem_reseed`` reach
 it through ``smem_machine``, which launches the kernel
-(``ops.fm_cuda``) on CUDA tensors.
+(``ops.fm_cuda``) on CUDA tensors.  Interval starts leave the machine
+as int32 on a narrow index and int64 on a wide one; interval sizes
+leave it clamped to int32 on both, as the JAX package's ``_sz32`` does
+(they are only compared with small caps).
 """
 
 from __future__ import annotations
@@ -31,13 +41,14 @@ from . import fm_cuda
 
 M32 = 0xFFFFFFFF
 M55 = 0x55555555
+I32_MAX = (1 << 31) - 1
 
 
 @dataclass
 class DeviceFMIndex:
     """FM-index arrays resident on one device."""
 
-    blocks: torch.Tensor     # int32 [nb+1, 12], bits of uint32 values
+    blocks: torch.Tensor     # int32 [nb+1, 12] narrow; int64 [nb+1, 8] wide
     sa: torch.Tensor         # int64 SA of ranks 0, sa_intv, ... (sa[0] = 0)
     L2: torch.Tensor         # int64 [5]
     L2_host: tuple           # the same five counts as Python ints
@@ -50,20 +61,45 @@ class DeviceFMIndex:
     def device(self) -> torch.device:
         return self.blocks.device
 
+    @property
+    def wide(self) -> bool:
+        """int64 checkpoint rows (ranks past 2^31 representable)."""
+        return self.blocks.dtype == torch.int64
+
     @classmethod
-    def from_host(cls, idx, device="cuda") -> "DeviceFMIndex":
+    def from_host(cls, idx, device="cuda", wide: bool | None = None,
+                  count_bias=None) -> "DeviceFMIndex":
         """Upload a host :class:`~seqlib_tpu_torch.index.FMIndex`: its
         full SA with ``sa_intv`` 1 when it has one (a constructed
         index), else its samples with the file's interval (a loaded
-        one)."""
+        one).
+
+        ``wide`` picks the 64-byte int64 rows; by default an index whose
+        2L text is 2^31 or more gets them, and a narrow upload of such
+        an index raises (its ranks do not fit int32).  ``count_bias``
+        (int64 [4], wide only) adds bias[c] to every checkpoint of code
+        c, so rank'(c, k) = rank(c, k) + bias[c]: the JAX package's test
+        hook that gives ranks past 2^31 on a small index."""
         dev = resolve_device(device)
-        if idx.seq_len >= 2**31:
-            raise NotImplementedError(
-                "device FM-index requires seq_len < 2^31")
+        if wide is None:
+            wide = idx.seq_len >= 2**31
+        if not wide and idx.seq_len >= 2**31:
+            raise ValueError(
+                f"a 2L text of {idx.seq_len} >= 2^31 needs wide=True")
+        if count_bias is not None and not wide:
+            raise ValueError("count_bias needs wide=True")
         nb = idx.bwt_words.shape[0]
-        blocks = np.zeros((nb + 1, 12), np.uint32)
-        blocks[:, :4] = idx.cp_counts.astype(np.uint32)[:nb + 1]
-        blocks[:nb, 4:] = idx.bwt_words
+        cp = idx.cp_counts.astype(np.int64)[:nb + 1]
+        words = np.zeros((nb + 1, 8), np.uint32)
+        words[:nb] = idx.bwt_words
+        if wide:
+            if count_bias is not None:
+                cp = cp + np.asarray(count_bias, np.int64)[None, :]
+            blocks = np.concatenate(
+                [cp, np.ascontiguousarray(words).view(np.int64)], axis=1)
+        else:
+            blocks = np.concatenate(
+                [cp.astype(np.uint32), words], axis=1).view(np.int32)
         if idx.sa_full is not None:
             sa, sa_intv = idx.sa_full.astype(np.int64), 1
         else:
@@ -71,7 +107,7 @@ class DeviceFMIndex:
         sa[0] = 0
         L2 = np.asarray(idx.L2, np.int64)
         return cls(
-            blocks=torch.from_numpy(blocks.view(np.int32)).to(dev),
+            blocks=torch.from_numpy(np.ascontiguousarray(blocks)).to(dev),
             sa=torch.from_numpy(sa).to(dev),
             L2=torch.from_numpy(L2.copy()).to(dev),
             L2_host=tuple(int(v) for v in L2),
@@ -110,8 +146,14 @@ def _inblock_count(words: torch.Tensor, c, within: torch.Tensor
 
 
 def _rows(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
-    """Block rows holding rank position k, as int64 [..., 12]."""
-    return fm.blocks[k >> 7].to(torch.int64) & M32
+    """Block rows holding rank position k, as int64 [..., 12]: the 4
+    checkpoints, then the 8 BWT words."""
+    row = fm.blocks[k >> 7]
+    if not fm.wide:
+        return row.to(torch.int64) & M32
+    pairs = row[..., 4:]
+    words = torch.stack([pairs & M32, (pairs >> 32) & M32], dim=-1)
+    return torch.cat([row[..., :4], words.flatten(-2)], dim=-1)
 
 
 def rank(fm: DeviceFMIndex, c, k: torch.Tensor) -> torch.Tensor:
@@ -190,7 +232,11 @@ WALK_CHECK = 8
 def bwt_char(fm: DeviceFMIndex, p: torch.Tensor) -> torch.Tensor:
     """Stored-BWT code at BWT position p (already sentinel-adjusted)."""
     p = p.to(torch.int64)
-    word = fm.blocks[p >> 7, 4 + ((p >> 4) & 7)].to(torch.int64) & M32
+    j = (p >> 4) & 7
+    if fm.wide:
+        word = (fm.blocks[p >> 7, 4 + (j >> 1)] >> (32 * (j & 1))) & M32
+    else:
+        word = fm.blocks[p >> 7, 4 + j].to(torch.int64) & M32
     return (word >> (2 * (15 - (p & 15)))) & 3
 
 
@@ -276,8 +322,9 @@ def _smem_machine(fm: DeviceFMIndex, reads, lens, x0, min_intv, active,
 
     reads uint8/int [B, L] nt4 codes; lens, x0, min_intv [B]; active
     bool [B].  A lane runs at most ``step_cap`` steps; a lane still
-    busy then counts in n_dropped.  Returns int32 dict(qbeg, qend,
-    intv_l, intv_sz [B, max_seeds], n_seeds, n_dropped [B]) plus, with
+    busy then counts in n_dropped.  Returns dict(qbeg, qend,
+    intv_l, intv_sz [B, max_seeds], n_seeds, n_dropped [B]), int32 but
+    intv_l int64 on a wide index and intv_sz clamped to int32, plus, with
     ``p3_seeds``, p3_qbeg/p3_qend/p3_intv_l/p3_intv_sz [B, p3_seeds]
     and p3_n [B].  ``count_work`` adds int64 [B] counts of the work
     kernel K2 does per lane: "steps" (loop iterations while busy),
@@ -494,15 +541,20 @@ def _smem_machine(fm: DeviceFMIndex, reads, lens, x0, min_intv, active,
         st = body(st)
 
     i32 = torch.int32
+    rk = i64 if fm.wide else i32
+
+    def sz32(v):
+        return v.clamp(max=I32_MAX).to(i32)
+
     truncated = (st["mode"] != M_DONE).to(i64)
     out = dict(qbeg=st["qb"].to(i32), qend=st["qe"].to(i32),
-               intv_l=st["il"].to(i32), intv_sz=st["isz"].to(i32),
+               intv_l=st["il"].to(rk), intv_sz=sz32(st["isz"]),
                n_seeds=st["n"].to(i32),
                n_dropped=(st["nfull"] + truncated).to(i32))
     if p3_seeds:
         out.update(p3_qbeg=st["pqb"].to(i32), p3_qend=st["pqe"].to(i32),
-                   p3_intv_l=st["pil"].to(i32),
-                   p3_intv_sz=st["pisz"].to(i32), p3_n=st["pn"].to(i32))
+                   p3_intv_l=st["pil"].to(rk),
+                   p3_intv_sz=sz32(st["pisz"]), p3_n=st["pn"].to(i32))
     if count_work:
         out.update(work)
     return out
@@ -539,9 +591,9 @@ def smem_reseed(fm: DeviceFMIndex, reads, lens, qb, qe, occ, active,
                 min_seed_len: int = 19, max_prev: int = 8):
     """bwa's second ``mem_collect_intv`` pass: ``bwt_smem1`` from each
     seed midpoint with min_intv = occ + 1, keeping the longest
-    qualifying SMEM.  Returns (qbeg2, qend2, intv_l2, intv_sz2) int32,
-    zeros where nothing qualified."""
-    B, L = reads.shape
+    qualifying SMEM.  Returns (qbeg2, qend2, intv_l2, intv_sz2) in the
+    machine's dtypes, zeros where nothing qualified."""
+    L = reads.shape[1]
     R = 4
     mid = (qb + qe) // 2
     acc = smem_machine(fm, reads, lens, x0=mid, min_intv=occ + 1,
@@ -553,6 +605,5 @@ def smem_reseed(fm: DeviceFMIndex, reads, lens, qb, qe, occ, active,
         < acc["n_seeds"][:, None]
     pick = torch.argmax(torch.where(valid, slen, -1), dim=1)[:, None]
     got = valid.gather(1, pick)[:, 0] & active.bool()
-    zero = torch.zeros(B, dtype=torch.int32, device=reads.device)
-    return tuple(torch.where(got, acc[k].gather(1, pick)[:, 0], zero)
+    return tuple(torch.where(got, acc[k].gather(1, pick)[:, 0], 0)
                  for k in ("qbeg", "qend", "intv_l", "intv_sz"))

@@ -3,8 +3,11 @@ seqlib_tpu/ops/fm_pallas.py).
 
 ``smem_machine_cuda`` launches ``csrc/smem_machine.cu``; it is what
 ``ops.fm.smem_machine`` runs on CUDA tensors (the plain version there,
-``ops.fm._smem_machine``, runs on CPU tensors).  ``load_chase`` is the
-latency probe behind K2's dependent-load bound.
+``ops.fm._smem_machine``, runs on CPU tensors).  A narrow index (int32
+blocks, 48-byte rows) takes the kernel's int32 instantiation, a wide one
+(int64 blocks, 64-byte rows) its int64 instantiation, which returns
+int64 interval starts; both count as launches of K2.  ``load_chase`` is
+the latency probe behind K2's dependent-load bound.
 """
 
 from __future__ import annotations
@@ -34,9 +37,14 @@ def smem_machine_cuda(fm, reads, lens, x0, min_intv, active,
                          f"1..{lib.smem_machine_max_stack()}")
     if L < 1 or max_seeds < 1:
         raise ValueError("smem_machine_cuda: empty read or seed width")
-    if not fm.blocks.is_contiguous() or fm.blocks.dtype != torch.int32:
-        raise ValueError("smem_machine_cuda: blocks must be contiguous int32")
+    width = {torch.int32: 12, torch.int64: 8}.get(fm.blocks.dtype)
+    if not fm.blocks.is_contiguous() or fm.blocks.dim() != 2 \
+            or fm.blocks.shape[1] != width:
+        raise ValueError("smem_machine_cuda: blocks must be contiguous "
+                         "int32 [rows, 12] or int64 [rows, 8]")
+    wide = fm.blocks.dtype == torch.int64
     i32 = torch.int32
+    rk = torch.int64 if wide else i32
 
     def lane(v, dt):
         v = torch.as_tensor(v, device=dev)
@@ -52,20 +60,24 @@ def smem_machine_cuda(fm, reads, lens, x0, min_intv, active,
     act = lane(active, torch.uint8)
     S, P3 = max_seeds, p3_seeds
     qb = torch.empty((B, S), dtype=i32, device=dev)
-    qe, il, isz = (torch.empty_like(qb) for _ in range(3))
+    qe, isz = torch.empty_like(qb), torch.empty_like(qb)
+    il = torch.empty((B, S), dtype=rk, device=dev)
     n_seeds = torch.empty(B, dtype=i32, device=dev)
     n_drop = torch.empty_like(n_seeds)
     pshape = (B, max(P3, 1))
     pqb = torch.empty(pshape, dtype=i32, device=dev)
-    pqe, pil, pisz = (torch.empty_like(pqb) for _ in range(3))
+    pqe, pisz = torch.empty_like(pqb), torch.empty_like(pqb)
+    pil = torch.empty(pshape, dtype=rk, device=dev)
     pn = torch.empty(B, dtype=i32, device=dev)
-    L2 = (ctypes.c_int * 5)(*fm.L2_host)
+    ct = ctypes.c_longlong if wide else ctypes.c_int
+    L2 = (ct * 5)(*fm.L2_host)
     vp = ctypes.c_void_p
     ci = ctypes.c_int
-    rc = lib.smem_machine(
+    entry = lib.smem_machine_wide if wide else lib.smem_machine
+    rc = entry(
         vp(fm.blocks.data_ptr()), vp(reads_u8.data_ptr()),
         vp(lens32.data_ptr()), vp(x032.data_ptr()), vp(mi32.data_ptr()),
-        vp(act.data_ptr()), ci(B), ci(L), ci(fm.primary), L2, ci(S), ci(C),
+        vp(act.data_ptr()), ci(B), ci(L), ct(fm.primary), L2, ci(S), ci(C),
         ci(min_seed_len), ci(max_rounds), ci(step_cap), ci(P3),
         ci(p3_max_intv), vp(qb.data_ptr()), vp(qe.data_ptr()),
         vp(il.data_ptr()), vp(isz.data_ptr()), vp(n_seeds.data_ptr()),

@@ -162,13 +162,66 @@ def test_exports():
     for name in ("BamHeader", "BamRecord", "Cigar", "CigarField",
                  "GenomicRegion", "HeaderSequence", "UnalignedSequence"):
         assert getattr(seqlib_tpu_torch, name).__name__ == name
-    assert set(align.__all__) == {"BWAAligner", "AlnReg", "Chain",
-                                  "chain_seeds", "filter_chains",
-                                  "AlignerOptions", "FusedOverflowError"}
+    assert set(align.__all__) == {"BWAAligner", "ShardedBWAAligner",
+                                  "AlnReg", "Chain", "chain_seeds",
+                                  "filter_chains", "AlignerOptions",
+                                  "FusedOverflowError"}
     assert [c.__module__ for c in (AlnReg, Chain, AlignerOptions,
                                    FusedOverflowError)] == [
         "seqlib_tpu_torch.align.aligner", "seqlib_tpu_torch.align.chain",
         "seqlib_tpu_torch.align.options", "seqlib_tpu_torch.align.aligner"]
     from seqlib_tpu import index as jax_index
-    assert set(index.__all__) == set(jax_index.__all__) - {"ShardedFMIndex"}
+    from seqlib_tpu import align as jax_align
+    assert set(index.__all__) == set(jax_index.__all__)
+    assert set(align.__all__) == set(jax_align.__all__) \
+        | {"FusedOverflowError"}
+    assert index.ShardedFMIndex.__name__ == "ShardedFMIndex"
+    assert align.ShardedBWAAligner.__module__ \
+        == "seqlib_tpu_torch.align.sharded"
     assert index.OCC_INTERVAL == 128 and index.SA_INTERVAL == 32
+
+
+def test_long_read_bp_is_a_class_attribute_equal_to_jax():
+    """``LONG_READ_BP`` lives on the class, as in the JAX package, and
+    an instance reads it through itself."""
+    from seqlib_tpu.align import BWAAligner as JaxAligner
+    assert BWAAligner.LONG_READ_BP == JaxAligner.LONG_READ_BP == 1024
+    assert "LONG_READ_BP" in vars(BWAAligner)
+    idx = FMIndex.construct([("c", "ACGT" * 100)])
+    assert BWAAligner(idx, device="cpu").LONG_READ_BP == 1024
+
+
+def test_long_read_bp_moves_the_cut_over(aligner):
+    """A subclass (or an instance) with ``LONG_READ_BP = 200`` sends a
+    300 bp batch down the long-read path, with the long path's records,
+    and ``align_stream_bam`` raises FusedOverflowError for it."""
+    aln, g = aligner
+    seqs = [g[1000:1300], g[20_000:20_300]]
+    names = ["r300a", "r300b"]
+
+    class Short(BWAAligner):
+        LONG_READ_BP = 200
+
+    short = Short(aln.index, device="cpu")
+    calls = []
+    orig = Short._align_batch_long
+
+    def spy(self, *a, **kw):
+        calls.append(len(a[0]))
+        return orig(self, *a, **kw)
+    Short._align_batch_long = spy
+    hdr = aln.index.header_from_index()
+    got = [[r.to_sam(hdr) for r in rs] for rs in short.align_batch(seqs,
+                                                                   names)]
+    assert calls == [2]
+    want = [[r.to_sam(hdr) for r in rs]
+            for rs in aln._align_batch_long(seqs, names, False, 0.9, 10)]
+    assert got == want and all(got)
+    with pytest.raises(FusedOverflowError, match="200 bp"):
+        list(short.align_stream_bam(iter(UnalignedSequence(n, s)
+                                         for n, s in zip(names, seqs))))
+    inst = BWAAligner(aln.index, device="cpu")
+    inst.LONG_READ_BP = 200
+    with pytest.raises(FusedOverflowError):
+        inst.align_batch_bam(seqs, names)
+    assert BWAAligner.LONG_READ_BP == 1024

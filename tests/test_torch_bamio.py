@@ -491,7 +491,7 @@ def test_refgenome_query_equals_jax(tmp_path):
 
 # -- CRAM through BamWriter / BamReader ---------------------------------------
 
-def test_cram_raises_not_implemented(tmp_path):
+def test_cram_routes_write_and_read_like_jax(tmp_path):
     """The CRAM routes (``BamWriter(CRAM)``, a ``.cram`` path, and
     ``BamReader`` on the file) raise nothing: each writes or reads the
     records, byte-equal to the JAX package's CRAM."""

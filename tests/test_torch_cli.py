@@ -5,9 +5,10 @@ reference and reads made from a numpy seed in ``tmp_path``.
 ``index`` writes files byte-equal to the JAX CLI's; ``align`` (SAM and
 BAM) equals the port library's records; ``align -2`` gives proper
 pairs; ``align -C`` writes the JAX CLI's CRAM byte for byte; ``bfc
--f`` and ``fml -f`` equal the JAX CLI's output; sharded and oversized
-references and a missing GPU exit 1 with a message; one fresh
-interpreter shows the CLI imports no JAX.
+-f`` and ``fml -f`` equal the JAX CLI's output, and so does ``align
+-2`` on 32 pairs, line for line; a shard manifest without a count, a
+monolithic index past the shard bound and a missing GPU exit 1 with a
+message; one fresh interpreter shows the CLI imports no JAX.
 Tolerance: exact equality.
 """
 
@@ -28,6 +29,7 @@ from seqlib_tpu_torch import cli
 from seqlib_tpu_torch.align import BWAAligner
 from seqlib_tpu_torch.align.pairing import mark_supplementary
 from seqlib_tpu_torch.index import FMIndex
+from seqlib_tpu_torch.index import sharded as port_sharded
 from seqlib_tpu_torch.io import BamReader, FastqReader
 from seqlib_tpu_torch.sim import make_genome, simulate_pairs, simulate_reads
 
@@ -198,22 +200,72 @@ def test_align_cram_equals_jax_cli(data, library_sam, tmp_path):
 
 
 def test_refusals_name_the_roadmap_item(data, tmp_path, monkeypatch):
-    """A .shards manifest and references over the bound (item 6): exit 1
-    and a message naming the item."""
+    """What is left of the refusals once sharded indexes are ported: a
+    .shards manifest without a shard count, and bwa's files of one
+    index past DEFAULT_MAX_SHARD_BP (patched to 1000), exit 1 with a
+    message naming the manifest, or the bound and the way out (the JAX
+    CLI's ValueError); a FASTA past the bound and ``index`` of it are
+    no longer refused, they shard as the JAX CLI does."""
     fq, fa = str(data / "r.fq"), str(data / "ref.fa")
     shard = tmp_path / "big.fa"
     shard.write_bytes((data / "ref.fa").read_bytes())
     (tmp_path / "big.fa.shards").write_text("{}")
     rc, _, err = _run(cli.main, ["align", "-F", fq, "-G", str(shard)] + CPU)
-    assert rc == 1 and "item 6" in err and ".shards" in err
-    monkeypatch.setattr(cli, "DEFAULT_MAX_SHARD_BP", 1000)
+    assert rc == 1 and "n_shards" in err and ".shards" in err
+    monkeypatch.setattr(port_sharded, "DEFAULT_MAX_SHARD_BP", 1000)
+    rc, _, err = _run(cli.main, ["align", "-F", fq, "-G", fa] + CPU)
+    assert rc == 1 and "1000" in err and "seqtools index" in err
     plain = tmp_path / "plain.fa"          # a FASTA without index files
     plain.write_bytes((data / "ref.fa").read_bytes())
-    for argv in (["align", "-F", fq, "-G", fa] + CPU,   # bound from .ann
-                 ["align", "-F", fq, "-G", str(plain)] + CPU,
-                 ["index", str(plain)]):
-        rc, _, err = _run(cli.main, argv)
-        assert rc == 1 and "item 6" in err and "1000" in err, argv
+    few = tmp_path / "few.fq"
+    _write_fastq(few, [(r.name, r.seq, r.qual) for r in
+                       list(FastqReader(fq))[:16]])
+    rc, out, _ = _run(cli.main, ["align", "-F", str(few), "-G", str(plain)]
+                      + CPU)
+    body = [ln for ln in out.splitlines() if not ln.startswith("@")]
+    assert rc == 0 and len({ln.split("\t")[0] for ln in body}) == 16
+    rc, _, err = _run(cli.main, ["index", str(plain)])
+    assert rc == 0 and "1 shards" in err
+    assert (tmp_path / "plain.fa.shards").exists()
+
+
+@pytest.fixture(scope="module")
+def jax_paired_sam(data, tmp_path_factory):
+    """The JAX CLI's ``align -2`` of the first 32 pairs on the loaded
+    index, run once (its CPU run is the costly part)."""
+    d = tmp_path_factory.mktemp("paired")
+    for end in ("p1", "p2"):
+        _write_fastq(d / f"{end}.fq", [
+            (r.name, r.seq, r.qual) for r in
+            list(FastqReader(str(data / f"{end}.fq")))[:32]])
+    rc, out, _ = _run(jax_cli.main, ["align", "-F", str(d / "p1.fq"), "-2",
+                                     str(d / "p2.fq"), "-G",
+                                     str(data / "ref.fa")])
+    assert rc == 0
+    return d, out
+
+
+@pytest.mark.parametrize("fmt", ["sam", "bam"])
+def test_align_paired_equals_jax_cli(data, jax_paired_sam, fmt, tmp_path):
+    """``align -2`` of 32 pairs (insert-size inference, mate rescue,
+    proper-pair bounds): the port's SAM is the JAX CLI's line for line,
+    and its BAM decodes to the same records."""
+    d, want = jax_paired_sam
+    out = tmp_path / f"pairs.{fmt}"
+    rc, _, _ = _run(cli.main, ["align", "-F", str(d / "p1.fq"), "-2",
+                               str(d / "p2.fq"), "-G", str(data / "ref.fa"),
+                               "-o", str(out)]
+                    + (["-b"] if fmt == "bam" else []) + CPU)
+    assert rc == 0
+    body = [ln for ln in want.splitlines() if not ln.startswith("@")]
+    assert len(body) >= 64
+    if fmt == "sam":
+        assert out.read_text() == want
+    else:
+        rd = BamReader(str(out))
+        hdr = rd.header()
+        assert [r.to_sam(hdr) for r in iter(rd.next, None)] == body
+        rd.close()
 
 
 def test_default_device_needs_a_gpu(data):

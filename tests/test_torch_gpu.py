@@ -133,6 +133,58 @@ def test_k2_equals_plain(cuda, genome, p3_seeds, step_cap, max_rounds, C, L):
         assert int(want["n_dropped"].sum()) > 0
 
 
+@pytest.mark.parametrize("p3_seeds,max_rounds", [(8, 160), (0, 1)])
+def test_k2_wide_equals_plain_and_narrow(cuda, genome, p3_seeds, max_rounds):
+    """K2's int64 instantiation (64-byte rows) == _smem_machine on the
+    wide index, and == the int32 instantiation on the narrow one."""
+    idx = FMIndex.construct([("rep1", genome)])
+    wide = DeviceFMIndex.from_host(idx, device=cuda, wide=True)
+    narrow = DeviceFMIndex.from_host(idx, device=cuda)
+    B, L = 256, 160
+    enc, lens, active = edge_read_batch(genome, B, L, seed=6)
+    rng = np.random.default_rng(2)
+    x0 = rng.integers(0, L, B) if max_rounds == 1 else np.zeros(B)
+    mi = rng.integers(1, 4, B) if max_rounds == 1 else np.ones(B)
+    args = [torch.from_numpy(np.asarray(a)).to(cuda) for a in
+            (enc, lens, x0.astype(np.int32), mi.astype(np.int32), active)]
+    kw = dict(max_seeds=16 if max_rounds > 1 else 4, min_seed_len=19, C=8,
+              max_rounds=max_rounds, step_cap=4 * L + 16,
+              p3_seeds=p3_seeds, p3_max_intv=20)
+    got = fm_cuda.smem_machine_cuda(wide, *args, **kw)
+    want = _smem_machine(wide, *args, **kw)
+    ref = fm_cuda.smem_machine_cuda(narrow, *args, **kw)
+    assert got["intv_l"].dtype == torch.int64
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], ref[k].to(got[k].dtype)), k
+
+
+def test_wide_and_sharded_aligners_gpu_equal_cpu(cuda, genome):
+    """BWAAligner(wide=True) and a two-shard ShardedBWAAligner: the card's
+    SAM == the CPU's; the wide path's == the narrow path's."""
+    from seqlib_tpu_torch.align import ShardedBWAAligner
+    from seqlib_tpu_torch.index import ShardedFMIndex
+    corpus = simulate_reads(genome, 200, seed=8)
+    seqs, names = [s for _, s in corpus], [n for n, _ in corpus]
+    idx = FMIndex.construct([("rep1", genome)])
+    g = BWAAligner(idx, wide=True, device=cuda).align_batch_bam(
+        seqs, names, sam=True)
+    c = BWAAligner(idx, wide=True, device="cpu").align_batch_bam(
+        seqs, names, sam=True)
+    n = BWAAligner(idx, device=cuda).align_batch_bam(seqs, names, sam=True)
+    assert g[0] == c[0] == n[0]
+    contigs = [("a", genome[:120_000]), ("b", genome[120_000:])]
+    sidx = ShardedFMIndex.construct(contigs, max_shard_bp=130_000)
+    assert sidx.n_shards == 2
+    cuda_lib.reset_launches()
+    g = ShardedBWAAligner(sidx, devices=[cuda]).align_batch_bam(
+        seqs, names, sam=True)
+    assert all(cuda_lib.LAUNCHES[k] > 0 for k in cuda_lib.MAIN_PATH)
+    c = ShardedBWAAligner(sidx, devices=["cpu"]).align_batch_bam(
+        seqs, names, sam=True)
+    assert g[0] == c[0] and np.array_equal(g[1], c[1])
+
+
 @pytest.mark.parametrize("Lq,w,zdrop", [
     # past the 4096 rows of the JAX package's packed tie-break
     (4097, 100, 100), (4097, 32, 0),

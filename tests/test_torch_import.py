@@ -78,7 +78,9 @@ def test_port_imports_no_jax_nor_jax_package():
               "seqlib_tpu_torch.filters",
               "seqlib_tpu_torch.filters.readfilter",
               "seqlib_tpu_torch.stats", "seqlib_tpu_torch.stats.coverage",
-              "seqlib_tpu_torch.plot", "seqlib_tpu_torch.plot.seqplot"):
+              "seqlib_tpu_torch.plot", "seqlib_tpu_torch.plot.seqplot",
+              "seqlib_tpu_torch.index.sharded",
+              "seqlib_tpu_torch.align.sharded"):
         assert m in res["mods"], m
 
 
