@@ -48,9 +48,11 @@ last line is printed):
    one 1-4 bp indel per kb, 10% with a 200-400 bp random 3' tail, both
    strands) on the main reference, in batches of 32 through
    ``align_batch`` (the long-read path) inside the kernel recorder,
-   launch counters reset just before and read just after: every
-   recorded K1 and K2 call held against its plain version (tolerance 0)
-   and timed beside its bound; the first 8 reads of <= 3 kb against the
+   launch counters reset just before and read just after: the lanes of
+   at most 4 kb of every recorded K1 call and the reads of at most 4 kb
+   of every K2 call held against the plain version (tolerance 0) and
+   timed beside their bound (the whole calls' device time beside); the
+   first 8 reads of <= 3 kb against the
    port's CPU run, byte for byte; >= 98% placed within 5 bp of the
    simulated start of their genomic part; reads/s, bases/s, stage times
    and peak device memory;
@@ -154,7 +156,26 @@ last line is printed):
    equal-score hits, the same alignments with another of them primary
    (the global keys order such hits differently, as in the JAX
    package); reads/s;
-18. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
+18. parallel: ``make_mesh()`` over every visible card and a mesh of two
+   entries on cuda:0; through each, the first 8,192 main reads through
+   ``align_stream_bam`` (counters reset just before and read just
+   after; SAM == the main path's byte for byte) and the 1000-read
+   repeat corpus through ``align_batch`` (it overflows, so the classic
+   path runs, its narrow global DP split over the mesh; records == the
+   golden SAM); on the two-entry mesh one batch's K1 and
+   K2 calls against their plain versions (tolerance 0);
+   ``sharded_seed_step`` on 1024 main reads and ``sharded_extend_step``
+   on bench.py's 1024 lanes at band 0 (K3) and band 100 (K1), each ==
+   the same call on one device == the plain version (tolerance 0);
+   ``measure_scaling`` at sizes [1, 2] of one card (replicas on one
+   card, not multi-GPU scaling); two ranks of
+   ``python -m seqlib_tpu_torch.parallel.multihost`` on cuda:0 joined by
+   gloo on a free localhost port, each with a timeout, each aligning its
+   ``host_shard`` of the 8,192 reads into a BAM part: both ranks' summed
+   totals agree and equal the parts' sums, and the parts merged by read
+   name == one process's records; reads/s per rank and combined, peak
+   memory per rank; ``dryrun_multichip(device_count)``;
+19. rectangle kernels K3, K4, K5 (``bench_sw.run``): first the DPX
    probe line (clocks a scheduler per warp instruction of the s16x2 and
    int32 add-max, PRMT, and the s16x2 forms' edge semantics); then each
    kernel held against its plain version on the card, tolerance 0, on
@@ -167,11 +188,12 @@ last line is printed):
    per-call wrapper time, as for K1 and K2, beside the earlier layouts'
    times (PERF.md), and each variant's longest lane alone: rows,
    pipeline steps, ns a step), whose launches they report;
-19. one JSON line of all five kernels' numbers, each with its launches
+20. one JSON line of all five kernels' numbers, each with its launches
    on each path it has (``by_path``: K1 and K2 main, overflow, long,
-   paired, bam, cli, records, wide, sharded; K3-K5 bench; all five
-   assembly, where no TPU-kernel counterpart runs), K1's and K2's long
-   and wide paths with their mean device ms and bound.
+   paired, bam, cli, records, wide, sharded, mesh, multihost; K3 mesh;
+   K3-K5 bench; all five assembly, where no TPU-kernel counterpart
+   runs), K1's and K2's long and wide paths with their mean device ms
+   and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -228,6 +250,10 @@ N_BATCHES = 8
 READ_BP = 150
 LONG_READS = 128                   # long-read phase: 1.5-10 kb reads
 LONG_BATCH = 32
+# K1 lanes and K2 reads of the long phase held against the plain versions
+# (which last as long as their longest lane); longer ones are aligned and
+# checked by placement only
+LONG_CHECK_BP = 4_000
 PAIR_BATCH = 4096                  # paired phase: 2 x 4096 pairs
 PAIR_BATCHES = 2
 PAIR_CHECK = 512                   # pairs held against the CPU run
@@ -248,6 +274,7 @@ PLOT_WINDOW = 1_000
 K1_LONG_EDGES = [(Lq, w, z) for Lq in (4095, 4096, 4097, 6200)
                  for w in (32, 100) for z in (0, 100)] + [(30_000, 100, 100)]
 K2_LONG_EDGES = (12_289, 60_000)
+K2_EDGE_CAP = 2000                 # steps a lane of those reads may take
 WIDE_SYNTH_BP = 2**31 + 2**24      # wide: a synthetic BWT past 2^31
 WIDE_SYNTH_READS = 4096
 # wide: base shares of the skewed synthetic BWT, whose T counts pass 2^31
@@ -255,6 +282,7 @@ WIDE_SKEW = (0.001, 0.001, 0.001, 0.997)
 WIDE_BIAS = (3 << 30, (1 << 32) + 5, 1 << 31, (1 << 33) + 7)
 SHARD_BP = 2_700_000               # sharded: chr1 | chr2 + chr3
 SHARD_READS = 4096                 # reads through `seqtools align` on it
+MESH_READS = 8192                  # parallel: main reads through each mesh
 ASM_WINDOW = 50_000                # assembly-local: genome[0:50 kb], before
 ASM_PAIRS = 5_000                  # the first planted repeat slot
 BFC_PAIRS = GENOME_BP * 30 // (2 * READ_BP)   # bfc-genome: 30x of 2 x 150 bp
@@ -852,23 +880,78 @@ def plain_k2_grouped(fm, calls):
     return out
 
 
+def _k1_lanes_upto(args, got, check_bp):
+    """A K1 call's lanes of query length <= check_bp (all where None),
+    their codes cut to the longest such lane, and what the kernel
+    returned for them; None where no lane qualifies."""
+    if check_bp is None:
+        return args, got
+    q, ql, t, tl, h0 = args
+    sel = torch.nonzero(ql <= check_bp).flatten()
+    if sel.numel() == 0:
+        return None
+    lq = max(int(ql[sel].max()), 1)
+    lt = max(int(tl[sel].max()), 1)
+    return ((q[sel, :lq].contiguous(), ql[sel], t[sel, :lt].contiguous(),
+             tl[sel], h0[sel]), {k: v[sel] for k, v in got.items()})
+
+
+def _k2_reads_upto(kw, got, check_bp):
+    """A K2 call's reads of length <= check_bp (all where None), cut to
+    the longest such read, and what the kernel returned for them."""
+    if check_bp is None:
+        return kw, got
+    sel = torch.nonzero(kw["lens"] <= check_bp).flatten()
+    if sel.numel() == 0:
+        return None
+    L = max(int(kw["lens"][sel].max()), 1)
+    sub = {k: v[sel] if torch.is_tensor(v) else v for k, v in kw.items()}
+    sub["reads"] = sub["reads"][:, :L].contiguous()
+    return sub, {k: v[sel] for k, v in got.items()}
+
+
 def check_time_recorded(rec: Recorder, what: str, load_ns: float,
-                        card: str) -> dict:
+                        card: str, check_bp: int | None = None) -> dict:
     """Each recorded K1 and K2 call of a path held against its plain
     version on the same inputs (tolerance 0; ``plain_k1_grouped``,
     ``plain_k2_grouped``), then timed on the card (device ms per launch)
     beside its bound; returns per-kernel lists of (ms, bound ms,
-    bound_by)."""
+    bound_by).  With ``check_bp`` only the K1 lanes and K2 reads of at
+    most that many bases are held, timed and bounded (the plain
+    versions last as long as their longest lane); each whole call's
+    device time is logged beside."""
     times = {"sw_extend": [], "smem_machine": []}
     t0 = time.time()
-    k1_calls = [k1_call_kwargs(r) for r in rec.k1]
-    k1_plain = plain_k1_grouped(k1_calls)
-    k2_calls = [k2_call_kwargs(r) for r in rec.k2]
-    k2_plain = plain_k2_grouped(k2_calls[0][0], [kw for _, kw in k2_calls]) \
-        if k2_calls else []
+    k1_whole = [k1_call_kwargs(r) for r in rec.k1]
+    k1_sub = []
+    for r, (a, kw) in zip(rec.k1, k1_whole):
+        sub = _k1_lanes_upto(a, r[3], check_bp)
+        if sub is not None:
+            k1_sub.append(sub + (kw,))
+    k1_plain = plain_k1_grouped([(a, kw) for a, _, kw in k1_sub])
+    k2_whole = [k2_call_kwargs(r) for r in rec.k2]
+    k2_sub = [sub for r, (_, kw) in zip(rec.k2, k2_whole)
+              if (sub := _k2_reads_upto(kw, r[3], check_bp)) is not None]
+    fm = k2_whole[0][0] if k2_whole else None
+    k2_plain = plain_k2_grouped(fm, [kw for kw, _ in k2_sub]) \
+        if k2_sub else []
     t_plain = time.time() - t0
-    for r, (args, kw), want in zip(rec.k1, k1_calls, k1_plain):
-        err = max_abs_diff(r[3], want)
+    if check_bp is not None:
+        whole1 = [round(device_ms(
+            lambda: sw_cuda.extend_batch_banded_cuda(*a, **kw), 3), 4)
+            for a, kw in k1_whole]
+        whole2 = [round(device_ms(
+            lambda: fm_cuda.smem_machine_cuda(fm, **kw), 3), 4)
+            for _, kw in k2_whole]
+        log(f"  whole calls' device ms: K1 {whole1}, K2 {whole2}; held, "
+            f"timed and bounded below: the K1 lanes and K2 reads of <= "
+            f"{check_bp} bp ({sum(len(a[1]) for a, _, _ in k1_sub)} of "
+            f"{sum(len(a[1]) for a, _ in k1_whole)} K1 lanes, "
+            f"{sum(len(kw['lens']) for kw, _ in k2_sub)} of "
+            f"{sum(len(kw['lens']) for _, kw in k2_whole)} K2 reads) "
+            f"[{card}]")
+    for (args, got, kw), want in zip(k1_sub, k1_plain):
+        err = max_abs_diff(got, want)
         if err:
             raise AssertionError(f"{what}: K1 differs from plain ({err})")
         ms = device_ms(lambda: sw_cuda.extend_batch_banded_cuda(*args, **kw),
@@ -880,9 +963,9 @@ def check_time_recorded(rec: Recorder, what: str, load_ns: float,
             f" longest lane {int(want['rows'].max())} rows = "
             f"{1e3 * ms / max(int(want['rows'].max()), 1):.3f} us a row; "
             f"bound {bd[0]:.4f} ms ({bd[1]}) [{card}]")
-    for r, (fm, kw), work in zip(rec.k2, k2_calls, k2_plain):
+    for (kw, got), work in zip(k2_sub, k2_plain):
         keys = K2_KEYS_BASE + (K2_KEYS_P3 if kw.get("p3_seeds") else ())
-        err = max_abs_diff(r[3], work, keys)
+        err = max_abs_diff(got, work, keys)
         if err:
             raise AssertionError(f"{what}: K2 differs from plain ({err})")
         ms = device_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw), 3)
@@ -895,9 +978,11 @@ def check_time_recorded(rec: Recorder, what: str, load_ns: float,
             f"time, longest lane {steps} steps = "
             f"{1e3 * ms / max(steps, 1):.3f} us a step; bound {bd[0]:.4f} ms "
             f"({bd[1]}), dependent-load bound {dep_ms:.4f} ms [{card}]")
-    log(f"{what}: K1 ({len(rec.k1)} calls) and K2 ({len(rec.k2)} calls) "
-        "bit-equal to their plain versions on the path's own inputs "
-        f"(tolerance 0; plain versions {t_plain:.1f} s, grouped)")
+    log(f"{what}: K1 ({len(k1_sub)} of {len(rec.k1)} calls) and K2 "
+        f"({len(k2_sub)} of {len(rec.k2)} calls) bit-equal to their plain "
+        "versions on the path's own inputs"
+        + (f", lanes of <= {check_bp} bp" if check_bp is not None else "")
+        + f" (tolerance 0; plain versions {t_plain:.1f} s, grouped)")
     return times
 
 
@@ -955,7 +1040,8 @@ def long_read_phase(aln, genome: str, card: str, load_ns: float):
         "a primary")
     if rate < 0.98:
         raise AssertionError(f"long reads: placement {rate:.4f} < 0.98")
-    times = check_time_recorded(rec, "long reads", load_ns, card)
+    times = check_time_recorded(rec, "long reads", load_ns, card,
+                                check_bp=LONG_CHECK_BP)
     short = [i for i, (_, s) in enumerate(reads) if len(s) <= 3000][:8]
     t0 = time.time()
     cpu = BWAAligner(aln.index, device="cpu")
@@ -1898,7 +1984,7 @@ def long_edge_phase(dev, fm, genome: str, card: str) -> None:
     timed: K1 across 4096 rows (the JAX package's packed tie-break), 48
     KB and 227 KB of shared memory for four lanes' codes; K2 past 48 KB
     (L 12,289) and past 227 KB (L 60,000, read from global memory), x0
-    spread along the reads and a step cap of 4000."""
+    spread along the reads and a step cap of K2_EDGE_CAP."""
     k1_calls, k1_got = [], []
     for Lq, w, zdrop in K1_LONG_EDGES:
         args = k1_long_inputs(dev, 16, Lq, w, seed=Lq + w + zdrop)
@@ -1932,7 +2018,7 @@ def long_edge_phase(dev, fm, genome: str, card: str) -> None:
         kw = {k: torch.from_numpy(np.asarray(v)).to(dev)
               for k, v in kw.items()}
         kw.update(max_seeds=256, min_seed_len=19, C=8, max_rounds=L,
-                  step_cap=4000, p3_seeds=8, p3_max_intv=20)
+                  step_cap=K2_EDGE_CAP, p3_seeds=8, p3_max_intv=20)
         k2_calls.append(kw)
     k2_got = [fm_cuda.smem_machine_cuda(fm, **kw) for kw in k2_calls]
     t0 = time.time()
@@ -1947,7 +2033,8 @@ def long_edge_phase(dev, fm, genome: str, card: str) -> None:
         ms = device_ms(lambda: fm_cuda.smem_machine_cuda(fm, **kw), 3)
         steps = int(want["steps"].max())
         log(f"K2 long edge B={B} L={L} (four reads ~{4 * L / 1024:.0f} KB), "
-            f"cap 4000: bit-equal (tolerance 0; {int(want['n_dropped'].sum())}"
+            f"cap {K2_EDGE_CAP}: bit-equal (tolerance 0; "
+            f"{int(want['n_dropped'].sum())}"
             f" lanes at the cap); {ms:.4f} ms device time, "
             f"{1e3 * ms / max(steps, 1):.3f} us a step [{card}]")
 
@@ -2510,6 +2597,270 @@ def wide_phase(genome: str, idx, reads, outs, narrow: dict, dev,
             for k in cuda_lib.MAIN_PATH}
 
 
+# ---------------------------------------------------------------------------
+# parallel: meshes, the data-parallel steps, two ranks, the dry run
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT = 300                 # s a rank of the two-rank run may take
+
+
+def sam_by_name(lines) -> dict[str, list[str]]:
+    out: dict[str, list[str]] = {}
+    for ln in lines:
+        out.setdefault(ln.split("\t", 1)[0], []).append(ln)
+    return out
+
+
+def mesh_checks(mesh, idx, stream, main_payloads, golden, rep, card: str,
+                record: bool) -> dict:
+    """One mesh: the first reads of the main path through
+    ``align_stream_bam`` (counters reset just before and read just
+    after; SAM == the main phase's byte for byte), the repeat corpus
+    through ``align_batch`` (the classic path, its narrow global DP split
+    over the mesh; records == the golden SAM), and with ``record`` one
+    batch whose K1 and K2 calls are held against their plain versions."""
+    what = f"mesh {[str(d) for d in mesh.devices]}"
+    aln = BWAAligner(idx, mesh=mesh)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    outs = list(aln.align_stream_bam(iter(stream), batch_size=BATCH,
+                                     sam=True))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    for k in cuda_lib.MAIN_PATH:
+        if launches[k] <= 0:
+            raise AssertionError(f"{what}: kernel {k} not launched")
+    if [p for _, p, _ in outs] != main_payloads:
+        raise AssertionError(f"{what}: SAM differs from the main path's")
+    log(f"{what}: {len(stream)} reads through align_stream_bam in "
+        f"{wall:.2f} s = {len(stream) / wall:.0f} reads/s; SAM == the main "
+        f"path's byte for byte; launches {launches} [{card}]")
+    g_idx, seqs, names = rep
+    r_aln = BWAAligner(g_idx, mesh=mesh)
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    recs = r_aln.align_batch(seqs, names)
+    torch.cuda.synchronize()
+    wall_r = time.time() - t0
+    r_launches = dict(cuda_lib.LAUNCHES)
+    hdr = g_idx.header_from_index()
+    if [r.to_sam(hdr) for rs in recs for r in rs] != golden:
+        raise AssertionError(f"{what}: the repeat corpus's records differ "
+                             "from the golden SAM")
+    fb = r_aln.stats["fused_overflow_fallback"]
+    if fb != 1 or any(r_launches[k] <= 0 for k in cuda_lib.MAIN_PATH):
+        raise AssertionError(f"{what}: repeat corpus did not take the "
+                             f"classic path on the kernels ({fb}, "
+                             f"{r_launches})")
+    log(f"{what}: the {len(seqs)}-read repeat corpus through align_batch "
+        f"(classic path: stage 1 whole on the first device, the narrow "
+        f"global DP split over the mesh) "
+        f"in {wall_r:.2f} s; records == {GOLDEN_REPEAT} ({len(golden)} "
+        f"lines); launches {r_launches} [{card}]")
+    if record:
+        b0 = stream[:BATCH]
+        with Recorder() as rec:
+            aln.align_batch_bam([r.seq for r in b0], [r.name for r in b0],
+                                sam=True)
+        if not rec.k1 or not rec.k2:
+            raise AssertionError(f"{what}: recorded no K1 or K2 call")
+        check_recorded(rec, f"{what} (one {BATCH}-read batch)")
+    return dict(launches=launches, reads_s=len(stream) / wall)
+
+
+def parallel_phase(genome: str, idx, reads, main_payloads, narrow: dict,
+                   card: str):
+    """Meshes over the host's cards and of two entries on one card, the
+    data-parallel seed and extension steps, the scaling report (replicas
+    on one card), two ranks of ``parallel.multihost`` on one card, and
+    ``dryrun_multichip`` over every card."""
+    from seqlib_tpu_torch.ops.fm import collect_seeds
+    from seqlib_tpu_torch.ops.sw import extend_rect
+    from seqlib_tpu_torch.parallel import (make_mesh, sharded_extend_step,
+                                           sharded_seed_step)
+    from seqlib_tpu_torch.parallel.dryrun import dryrun_multichip
+    from seqlib_tpu_torch.parallel.scaling import measure_scaling
+
+    class Read:
+        __slots__ = ("name", "seq")
+
+        def __init__(self, n, s):
+            self.name, self.seq = n, s
+
+    t_phase = time.time()
+    n_main = len(main_payloads) * BATCH
+    stream = [Read(n, s) for n, s in reads[:n_main]]
+    r_genome = make_repeat_genome()
+    r_reads = make_repeat_reads(r_genome)
+    rep = (FMIndex.construct([("rep1", r_genome)]),
+           [s for _, s in r_reads], [n for n, _ in r_reads])
+    with open(GOLDEN_REPEAT) as f:
+        golden = [l for l in f.read().splitlines() if not l.startswith("#")]
+
+    # ---- meshes ------------------------------------------------------------
+    cards = make_mesh()
+    log(f"parallel: make_mesh() over every visible card: "
+        f"{cards.shape['dp']} entries {[str(d) for d in cards.devices]}")
+    one_card = make_mesh(2, device="cuda:0")
+    mesh_launches = {k: 0 for k in cuda_lib.LAUNCHES}
+    mesh_rs = {}
+    for mesh, record in ((cards, False), (one_card, True)):
+        out = mesh_checks(mesh, idx, stream, main_payloads, golden, rep,
+                          card, record)
+        mesh_rs[len(mesh.devices)] = out["reads_s"]
+        for k, v in out["launches"].items():
+            mesh_launches[k] += v
+    log(f"parallel: main path {narrow['reads_s']:.0f} reads/s (32,768 "
+        f"reads, one card); the first {n_main} reads on {cards.shape['dp']} "
+        f"card(s) {mesh_rs[cards.shape['dp']]:.0f}, on 2 entries of cuda:0 "
+        f"{mesh_rs[2]:.0f} reads/s [{card}]")
+
+    # ---- the data-parallel steps on bench.py's 1024 lanes ------------------
+    dev0 = one_card.devices[0]
+    fm0 = DeviceFMIndex.from_host(idx, device=dev0)
+    aln1 = BWAAligner(idx, device=dev0)
+    enc, lens = aln1._encode_batch([r.seq for r in stream[:bench_sw.B]])
+    lens = lens.astype(np.int32)
+    args = bench_sw.bench_inputs(dev0)
+    seed_step = sharded_seed_step(fm0, one_card)
+    steps = {band: sharded_extend_step(one_card, zdrop=bench_sw.ZDROP,
+                                       band=band) for band in (0, 100)}
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    seeds, stats = seed_step(enc, lens)
+    ext = {band: step(*args) for band, step in steps.items()}
+    torch.cuda.synchronize()
+    step_launches = dict(cuda_lib.LAUNCHES)
+    if step_launches["sw_extend_rect"] <= 0 or \
+            step_launches["sw_extend"] <= 0:
+        raise AssertionError("parallel: the extension steps launched no K3 "
+                             f"or K1 ({step_launches})")
+    for k, v in step_launches.items():
+        mesh_launches[k] += v
+    e_t, l_t = torch.from_numpy(enc).to(dev0), torch.from_numpy(lens).to(dev0)
+    one = collect_seeds(fm0, e_t, l_t)
+    plain = collect_seeds(DeviceFMIndex.from_host(idx, device="cpu"),
+                          e_t.cpu(), l_t.cpu())
+    keys = ("qbeg", "qend", "intv_l", "intv_sz", "n_seeds")
+    err = max(max_abs_diff(seeds, one, keys),
+              max_abs_diff({k: v.cpu() for k, v in seeds.items()}, plain,
+                           keys))
+    if err or int(stats[0]) != int(one["n_seeds"].sum()) or int(stats[1]) \
+            != int((one["qend"] - one["qbeg"]).sum()):
+        raise AssertionError(f"parallel: sharded_seed_step differs ({err})")
+    ext_err = {}
+    for band, (out, total) in ext.items():
+        kw = dict(zdrop=bench_sw.ZDROP)
+        if band:
+            one = sw_cuda.extend_batch_banded(*args, band=band, **kw)
+            want = extend_batch(*args, band=band, **kw)
+        else:
+            one = sw_cuda.extend_batch_rect(*args, **kw)
+            want = extend_rect(*args, **kw)
+        ext_err[band] = max(max_abs_diff(out, one), max_abs_diff(out, want))
+        if ext_err[band] or int(total) != int(want["score"].sum()):
+            raise AssertionError(f"parallel: sharded_extend_step band "
+                                 f"{band} differs ({ext_err[band]})")
+    log(f"parallel: sharded_seed_step ({bench_sw.B} main-path reads, "
+        f"{int(stats[0])} seeds covering {int(stats[1])} bases) and "
+        f"sharded_extend_step on bench.py's {bench_sw.B} lanes (band 0: "
+        f"K3; band 100: K1; zdrop {bench_sw.ZDROP}) on 2 entries of cuda:0 "
+        f"== one device == the plain versions (tolerance 0); launches "
+        f"{step_launches}")
+
+    # ---- reads/s over mesh sizes: replicas on one card ---------------------
+    enc4, lens4 = aln1._encode_batch([r.seq for r in stream[:BATCH]])
+    rows = measure_scaling(idx, enc4, lens4, sizes=[1, 2], iters=3,
+                           device="cuda:0")
+    log(f"parallel: measure_scaling at sizes [1, 2] of one card (replicas "
+        f"of a {BATCH}-read batch on cuda:0, not multi-GPU scaling): "
+        f"{rows} [{card}]")
+
+    # ---- two ranks on one card ---------------------------------------------
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        out_bam = os.path.join(workdir, "ranks.bam")
+        env = dict(os.environ, PYTHONPATH=here)
+        argv = [sys.executable, "-m", "seqlib_tpu_torch.parallel.multihost",
+                "--coordinator", f"127.0.0.1:{port}", "--world", "2",
+                "--out", out_bam, "--device", "cuda:0",
+                "--genome-bp", str(len(genome)), "--reads", str(len(reads)),
+                "--take", str(n_main), "--batch", str(BATCH)]
+        t0 = time.time()
+        procs = [subprocess.Popen(argv + ["--rank", str(r)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env=env, cwd=here) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        t_ranks = time.time() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"parallel: rank {r} exited "
+                                     f"{p.returncode}:\n{text[-3000:]}")
+        res = [json.loads(text.strip().splitlines()[-1]) for text in logs]
+        totals = {(r["total_records"], r["total_reads"]) for r in res}
+        if len(totals) != 1:
+            raise AssertionError(f"parallel: the ranks' totals differ "
+                                 f"({totals})")
+        total_records, total_reads = totals.pop()
+        if total_reads != n_main or total_reads != sum(
+                r["local_reads"] for r in res) or total_records != sum(
+                r["local_records"] for r in res):
+            raise AssertionError("parallel: totals != the parts' sums")
+        hdr = idx.header_from_index()
+        parts: dict[str, list[str]] = {}
+        for r in res:
+            rd = BamReader(r["part"])
+            for rec in iter(rd.next, None):
+                parts.setdefault(rec.qname, []).append(rec.to_sam(hdr))
+        want = sam_by_name(
+            "".join(p.decode() for p in main_payloads).splitlines())
+        if parts != want:
+            raise AssertionError("parallel: the ranks' parts differ from "
+                                 "one process's records")
+        span = max(r["t_end"] for r in res) - min(r["t_start"] for r in res)
+        rank_launches = {k: sum(r["launches"][k] for r in res)
+                         for k in cuda_lib.LAUNCHES}
+        for r in res:
+            log(f"parallel: rank {r['rank']} of 2 on {r['device']}: "
+                f"{r['local_reads']} reads, {r['local_records']} records "
+                f"in {r['wall_s']:.2f} s = {r['reads_s']:.0f} reads/s; peak "
+                f"device memory {r['peak_mib']:.0f} MiB [{card}]")
+        log(f"parallel: two ranks (gloo, one card): totals {total_records} "
+            f"records, {total_reads} reads on both == the parts' sums; the "
+            f"parts merged by read name == one process's records; combined "
+            f"{total_reads / span:.0f} reads/s over {span:.2f} s (one "
+            f"process: main path {narrow['reads_s']:.0f} reads/s); the "
+            f"ranks' run {t_ranks:.1f} s with start-up; launches "
+            f"{rank_launches} [{card}]")
+        for k in cuda_lib.MAIN_PATH:
+            if rank_launches[k] <= 0:
+                raise AssertionError(f"parallel: the ranks launched no {k}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- the dry run over every card ---------------------------------------
+    dry = dryrun_multichip(torch.cuda.device_count())
+    log(f"parallel: dryrun_multichip({torch.cuda.device_count()}): {dry}")
+    log(f"parallel phase: {time.time() - t_phase:.1f} s [{card}]")
+    return mesh_launches, rank_launches
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2808,9 +3159,19 @@ def main() -> int:
     # ---- wide: int64 ranks, wide=True main path, sharded ---------------------
     narrow["load_ns"] = load_ns
     wide_paths = wide_phase(genome, idx, reads, outs, narrow, dev, card)
+    main_payloads = [p for _, p, _ in outs[:MESH_READS // BATCH]]
     del outs
     for k in cuda_lib.MAIN_PATH:
         kernels[k]["by_path"].update(wide_paths[k])
+
+    # ---- parallel: meshes, the data-parallel steps, two ranks, dry run -----
+    mesh_launches, rank_launches = parallel_phase(genome, idx, reads,
+                                                  main_payloads, narrow, card)
+    del main_payloads
+    for k in cuda_lib.MAIN_PATH:
+        kernels[k]["by_path"].update(
+            mesh=path_fields(mesh_launches[k]),
+            multihost=path_fields(rank_launches[k]))
 
     # ---- K3, K4, K5 on the extension bench path --------------------------------
     t0 = time.time()
@@ -2818,6 +3179,8 @@ def main() -> int:
     for k in bench_sw.RECT_KERNELS:
         kernels[k] = dict(bench[k], by_path=dict(
             bench=path_fields(bench[k]["launches"])))
+    kernels["K3"]["by_path"]["mesh"] = path_fields(
+        mesh_launches[bench_sw.RECT_KERNELS["K3"].counter])
     for k, v in kernels.items():
         counter = bench_sw.RECT_KERNELS[k].counter \
             if k in bench_sw.RECT_KERNELS else k

@@ -3,12 +3,14 @@
 Short-read, long-read and paired alignment (seed, locate, chain, banded
 extension, dedup, global DP and traceback, native SAM/BAM emission) on
 an NVIDIA Hopper GPU, on indexes of any size (int64 ranks past a 2L text
-of 2^31) and on sharded indexes, BFC and string-graph assembly, SAM/BAM/CRAM file
+of 2^31) and on sharded indexes, over the cards of a host and over
+several processes (``parallel``), BFC and string-graph assembly, SAM/BAM/CRAM file
 I/O, bwa's index files, interval collections, the JSON read-filter
 engine, coverage and BAM statistics, ASCII plots and the ``seqtools``
 command line (``python -m seqlib_tpu_torch.cli``).  The package mirrors
 ``seqlib_tpu``'s layout (``core``, ``index``, ``ops``, ``align``,
-``assembly``, ``io``, ``intervals``, ``filters``, ``stats``, ``plot``)
+``parallel``, ``assembly``, ``io``, ``intervals``, ``filters``,
+``stats``, ``plot``)
 so each module has a named counterpart.
 
 Entry points run on ``device="cuda"`` by default and raise when no GPU

@@ -31,6 +31,24 @@ An index whose 2L text is 2^31 or more (or any index, with
 int64 instantiation and an int64 region block (``ops.fm``,
 ``device_full``); the JAX package's hi/lo twins of these modules have no
 counterpart here, as the card has native int64.
+
+``BWAAligner(index, mesh=...)`` (a ``parallel.Mesh``) splits every batch
+over the mesh's entries: the index and the 2L text are copied once to
+each distinct device, the encoded batch (padded to a multiple of the
+mesh size) is cut into contiguous equal slices, and each entry runs the
+fused program on its slice on a host thread of its own, under its
+device's guard, all at once; the host merges the slices' columnar hits.
+When any slice overflows its extension DP rows (``dp_rows(B / n)``, as
+the JAX package's mesh path), the whole batch takes the classic path,
+whose narrow-band global DP is split over the mesh the same way.  Its
+stage 1 runs on the whole batch on the mesh's first device: stage 1's
+caps are batch-wide (which chains an overflowing batch leaves
+unextended decides each read's best region and so its escapee
+extensions), so a split stage 1 gives other regions than one device
+does on an overflowing batch (16 of the 1000-read repeat corpus's reads
+on two slices).  Wide-band rows and long reads stay on the first device
+too.  The JAX package sends a mesh through the classic path only; the
+port's records equal its single-device run either way.
 """
 
 from __future__ import annotations
@@ -49,7 +67,7 @@ from ..core.cigar import Cigar, CigarField
 from ..core.record import FREVERSE, FSECONDARY, BamRecord
 from ..core.seq import NT4_TABLE, revcomp
 from ..core.unaligned import UnalignedSequence
-from ..device import resolve_device
+from ..device import resolve_device, run_on_devices
 from ..index.pack import both_strands
 from ..io.bam import encode_record
 from ..ops.fm import DeviceFMIndex
@@ -155,6 +173,28 @@ def _ops_to_runs(ops: np.ndarray, n_rows: int):
             vals[starts].astype(np.uint8), lens.astype(np.int32))
 
 
+class _Slices(list):
+    """Per-slice results of one batch split over a mesh, in entry order."""
+
+
+def _merge_cols(parts: list[dict], rows: int) -> dict:
+    """Columnar hits of consecutive ``rows``-read slices -> one batch's:
+    read indices offset by each slice's first row, CIGAR run offsets by
+    the runs of the slices before it."""
+    out = {}
+    for k in parts[0]:
+        out[k] = np.concatenate([c[k] for c in parts])
+    read_off, run_off = [], []
+    base = 0
+    for i, c in enumerate(parts):
+        read_off.append(np.full(c["read_idx"].size, i * rows, np.int32))
+        run_off.append(np.where(c["cig_n"] > 0, base, 0).astype(np.int64))
+        base += c["run_ops"].size
+    out["read_idx"] = out["read_idx"] + np.concatenate(read_off)
+    out["cig_off"] = out["cig_off"] + np.concatenate(run_off)
+    return out
+
+
 def _filter_cols(cols: dict, mask: np.ndarray) -> dict:
     """Keep only hits selected by ``mask`` (run arrays stay shared)."""
     out = dict(cols)
@@ -171,14 +211,19 @@ class BWAAligner:
     the hand-written kernels) or ``"cpu"`` (their plain PyTorch
     versions).  ``wide`` picks the int64 index path: by default an index
     whose 2L text is 2^31 or more takes it, and ``wide=True`` forces it
-    on any index.  Scoring options are set through the ``set_*`` methods
+    on any index.  ``mesh`` (a ``parallel.Mesh``) splits every batch
+    over its entries; ``device`` is then the mesh's first device.
+    Scoring options are set through the ``set_*`` methods
     (reference-style names) or ``self.options``."""
 
     LONG_READ_BP = 1024   # the fused path's packed chain keys cap reads here
+    mesh = None
 
     def __init__(self, index, options: AlignerOptions | None = None,
-                 wide: bool | None = None, device="cuda"):
-        self.device = resolve_device(device)
+                 wide: bool | None = None, device="cuda", mesh=None):
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None \
+            else resolve_device(device)
         self.index = index
         self.options = options or AlignerOptions()
         self.wide = index.seq_len >= 2**31 if wide is None else bool(wide)
@@ -186,6 +231,11 @@ class BWAAligner:
         self.fm = DeviceFMIndex.from_host(index, device=self.device,
                                           wide=self.wide)
         self.text_t = torch.from_numpy(self.text).to(self.device)
+        # the index and the 2L text on each of the mesh's devices
+        self._on = {self.device: (self.fm, self.text_t)}
+        for dev in (mesh.distinct() if mesh is not None else ()):
+            if dev not in self._on:
+                self._on[dev] = (self.fm.to(dev), self.text_t.to(dev))
         # truncation telemetry; align_stream_bam's host threads update it
         self.stats = dict(seeds_at_cap=0, occ_clipped=0, chains_at_cap=0,
                           regs_truncated=0, regions_widened=0,
@@ -200,8 +250,8 @@ class BWAAligner:
 
     @property
     def n_shards(self) -> int:
-        """Devices a batch is split over: 1 (one card)."""
-        return 1
+        """Slices a batch is split into: the mesh's size, else 1."""
+        return self.mesh.shape["dp"] if self.mesh is not None else 1
 
     def reset_stats(self):
         with self._stats_lock:
@@ -234,7 +284,7 @@ class BWAAligner:
 
     def _encode_batch(self, seqs: list[str]):
         L = _round_up(max(len(s) for s in seqs), 32)
-        Bp = _bucket(len(seqs), mn=8)
+        Bp = _round_up(_bucket(len(seqs), mn=8), self.n_shards)
         lens = np.zeros(Bp, np.int64)
         lens[:len(seqs)] = [len(s) for s in seqs]
         enc = np.full((Bp, L), 4, np.uint8)
@@ -244,18 +294,35 @@ class BWAAligner:
 
     def _dispatch_full(self, enc: np.ndarray, lens: np.ndarray):
         """Run the whole device program for one encoded batch; returns
-        (regions, snm, ops) tensors on the aligner's device."""
+        (regions, snm, ops) tensors on the aligner's device, or on a
+        mesh one such triple per slice (``_Slices``)."""
         if int(lens.max(initial=0)) > self.LONG_READ_BP:
             raise FusedOverflowError(
                 f"reads longer than {self.LONG_READ_BP} bp exceed the fused "
                 "path's packed chain keys: align them with align_batch, "
                 "which routes them through the long-read path")
+        if self.mesh is None:
+            return self._full_program(self.fm, self.text_t, enc, lens,
+                                      self.device)
+        # each entry's slice (contiguous rows) on its own host thread
+        b = enc.shape[0] // self.n_shards
+
+        def one(k, dev):
+            fm, text = self._on[dev]
+            return self._full_program(fm, text, enc[k * b:(k + 1) * b],
+                                      lens[k * b:(k + 1) * b], dev)
+
+        return _Slices(self.mesh.run(
+            [(lambda k=k, d=d: one(k, d))
+             for k, d in enumerate(self.mesh.devices)]))
+
+    def _full_program(self, fm, text, enc, lens, dev):
+        """``align_full`` of one encoded batch on ``dev``."""
         opt = self.options
         enc_lens = np.concatenate(
             [enc, lens.astype("<u4").view(np.uint8).reshape(-1, 4)], axis=1)
         return align_full(
-            self.fm, self.text_t,
-            torch.from_numpy(enc_lens).to(self.device),
+            fm, text, torch.from_numpy(enc_lens).to(dev),
             **self._stage1_kwargs(), T=opt.T, mask_level=opt.mask_level,
             mask_level_redun=opt.mask_level_redun,
             glob_band=2 * opt.w + 8)
@@ -284,8 +351,8 @@ class BWAAligner:
 
     def _dispatch_stage1(self, enc: np.ndarray, lens: np.ndarray) -> dict:
         """One ``seed_chain_extend`` (seed, locate, chain, compacted
-        extension) of an encoded batch; its tensors stay on the
-        aligner's device."""
+        extension) of an encoded batch, whole, on the aligner's (a
+        mesh's first) device, where its tensors stay."""
         dev = self.device
         return seed_chain_extend(
             self.fm, self.text_t, torch.from_numpy(enc).to(dev),
@@ -555,9 +622,11 @@ class BWAAligner:
         spans = np.array([r.re - r.rb for _, r in flat], np.int64)
         narrow = np.flatnonzero(~perfect & (spans <= Lt))
         wide = np.flatnonzero(~perfect & (spans > Lt))
-        dev = self.device
-        for rows_all, width, band in ((narrow, Lt, 2 * opt.w + 8),
-                                      (wide, Lt_wide, Lt_wide + 8)):
+        # the narrow-band rows split over a mesh; wide-band rows stay on
+        # the first device, as in the JAX package
+        for rows_all, width, band, split in (
+                (narrow, Lt, 2 * opt.w + 8, True),
+                (wide, Lt_wide, Lt_wide + 8, False)):
             group = max(1, GLOBAL_DP_BYTES // (Lq * (width + 1)))
             for g in range(0, rows_all.size, group):
                 dev_rows = rows_all[g:g + group]
@@ -572,13 +641,10 @@ class BWAAligner:
                     tl[k] = r.re - r.rb
                     q[k, :ql[k]] = enc[b, r.qb:r.qe]
                     t[k, :tl[k]] = self.text[r.rb:r.re]
-                snm, packed = global_and_traceback_packed(
-                    *(torch.from_numpy(a).to(dev) for a in (q, ql, t, tl)),
-                    o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
-                    e_ins=opt.e_ins, match=opt.a, mismatch=opt.b, band=band)
-                nms = snm.cpu().numpy()[:, 1]
-                dev_cigs = _ops_to_cigars_batch(
-                    _unpack_ops(packed.cpu().numpy()), M)
+                snm, packed = self._global_dp(
+                    q, ql, t, tl, band, split)
+                nms = snm[:, 1]
+                dev_cigs = _ops_to_cigars_batch(_unpack_ops(packed), M)
                 for k, m in enumerate(dev_rows):
                     cigars[m] = dev_cigs[k]
                     nms_by_row[m] = int(nms[k])
@@ -611,16 +677,57 @@ class BWAAligner:
                 slot=slot_of[b].get(id(r), -1), sec=r.secondary))
         return hits_per_read
 
+    def _global_dp(self, q, ql, t, tl, band: int, split: bool):
+        """``global_and_traceback_packed`` of host rows -> (snm, packed) on
+        the host; with ``split`` on a mesh the rows are cut into one
+        contiguous piece per entry, each run on the entry's device at
+        once (rows are independent)."""
+        opt = self.options
+        kw = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+                  e_ins=opt.e_ins, match=opt.a, mismatch=opt.b, band=band)
+
+        def run(rows, dev):
+            snm, packed = global_and_traceback_packed(
+                *(torch.from_numpy(a[rows]).to(dev) for a in (q, ql, t, tl)),
+                **kw)
+            return snm.cpu().numpy(), packed.cpu().numpy()
+
+        if not split or self.mesh is None:
+            return run(slice(None), self.device)
+        pieces = np.array_split(np.arange(q.shape[0]), self.n_shards)
+        groups = [(d, [lambda r=r, d=d: run(r, d)])
+                  for r, d in zip(pieces, self.mesh.devices) if r.size]
+        outs = [g[0] for g in run_on_devices(groups)]
+        return (np.concatenate([o[0] for o in outs]),
+                np.concatenate([o[1] for o in outs]))
+
     # ------------------------------------------------------------------
     # host: MAPQ, contig resolution, columnar hits
     # ------------------------------------------------------------------
 
     def _hits_cols_from_full(self, enc, lens, res):
         """Columnar hits (grouped by read, aligner append order) from the
-        device program's outputs, ready for ``native.bam_encode_hits``.
-        Returns None (and counts ``fused_overflow_fallback``) when the
-        extension DP rows overflowed: the caller reruns the batch through
-        the classic path."""
+        device program's outputs, ready for ``native.bam_encode_hits``;
+        a mesh's slices are merged (``_merge_cols``).  Returns None (and
+        counts ``fused_overflow_fallback`` once) when the extension DP
+        rows of the batch, or of any slice, overflowed: the caller reruns
+        the batch through the classic path."""
+        if not isinstance(res, _Slices):
+            cols = self._slice_cols(enc, lens, res)
+        else:
+            b = enc.shape[0] // len(res)
+            parts = [self._slice_cols(enc[k * b:(k + 1) * b],
+                                      lens[k * b:(k + 1) * b], r)
+                     for k, r in enumerate(res)]
+            cols = None if any(c is None for c in parts) \
+                else _merge_cols(parts, b)
+        if cols is None:
+            self._count(fused_overflow_fallback=1)
+        return cols
+
+    def _slice_cols(self, enc, lens, res):
+        """``_hits_cols_from_full`` of one device program's outputs, None
+        on an overflow."""
         opt = self.options
         regions = res[0].cpu().numpy()
         snm = res[1].cpu().numpy()
@@ -637,7 +744,6 @@ class BWAAligner:
                     chains_at_cap=(regions[:, extra0 + 4] > MAX_CHAINS).sum(),
                     escapees_deferred=regions[:, extra0 + 7].sum())
         if B and int(regions[0, extra0 + 6]) > dp_rows(B):
-            self._count(fused_overflow_fallback=1)
             return None
         n_dp = int(regions[0, extra0 + 5]) if B else 0
         run_rows, run_ops, run_lens = _ops_to_runs(_unpack_ops(packed), n_dp)
@@ -676,16 +782,11 @@ class BWAAligner:
                     tl[k] = re - rb
                     q[k, :ql[k]] = enc[b, qb:qe]
                     t[k, :tl[k]] = self.text[rb:re]
-                dev = self.device
-                snm2, packed2 = global_and_traceback_packed(
-                    torch.from_numpy(q).to(dev), torch.from_numpy(ql).to(dev),
-                    torch.from_numpy(t).to(dev), torch.from_numpy(tl).to(dev),
-                    o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
-                    e_ins=opt.e_ins, match=opt.a, mismatch=opt.b,
-                    band=Lt_wide + 8)
-                fb_nm = snm2.cpu().numpy()[:len(keep_fb), 1].astype(np.int32)
-                fb_rr, fb_ro, fb_rl = _ops_to_runs(
-                    _unpack_ops(packed2.cpu().numpy()), len(keep_fb))
+                snm2, packed2 = self._global_dp(q, ql, t, tl, Lt_wide + 8,
+                                                split=False)
+                fb_nm = snm2[:len(keep_fb), 1].astype(np.int32)
+                fb_rr, fb_ro, fb_rl = _ops_to_runs(_unpack_ops(packed2),
+                                                   len(keep_fb))
                 run_rows = np.concatenate([run_rows, fb_rr + n_dp])
                 run_ops = np.concatenate([run_ops, fb_ro])
                 run_lens = np.concatenate([run_lens, fb_rl])

@@ -18,7 +18,12 @@ any shard reported for its read; records get their shard's contig-id
 offset, and NA counts the read's regions across shards.
 
 Sub-aligners are placed round-robin over ``devices`` (torch devices;
-default one CUDA device).  A sharded aligner has no fused program and
+default one CUDA device): shard s on ``devices[s % len(devices)]``.
+Stage 1 (``_dispatch_stage1``) and the global DP (``_regions_to_hits``)
+run each entry of ``devices`` on a host thread of its own, under its
+device's guard, all at once (``device.run_on_devices``); the shards of
+one entry run in shard order.  The records equal a run of the shards
+one after another.  A sharded aligner has no fused program and
 no single 2L text: every entry point goes through the classic path
 (``_collect_regions``, ``_regions_to_hits``, the object API), long
 reads included, and paired alignment sets flags and mates only, as in
@@ -32,7 +37,7 @@ import threading
 
 import numpy as np
 
-from ..device import resolve_device
+from ..device import resolve_device, run_on_devices
 from ..index.sharded import ShardedFMIndex
 from .aligner import AlnReg, BWAAligner
 from .options import AlignerOptions
@@ -73,9 +78,24 @@ class ShardedBWAAligner(BWAAligner):
 
     # ------------------------------------------------------------------
 
+    def _per_shard(self, fn) -> list:
+        """``fn(s, sub)`` for every shard: each entry of ``devices`` on a
+        host thread of its own, its shards in order, all entries at once;
+        the results in shard order."""
+        n = len(self.devices)
+        slots = range(min(n, len(self.subs)))
+        groups = [(self.devices[k],
+                   [(lambda s=s: fn(s, self.subs[s]))
+                    for s in range(k, len(self.subs), n)]) for k in slots]
+        out: list = [None] * len(self.subs)
+        for k, res in zip(slots, run_on_devices(groups)):
+            out[k::n] = res
+        return out
+
     def _dispatch_stage1(self, enc: np.ndarray, lens: np.ndarray) -> list:
-        """Stage 1 on every shard, each on its sub-aligner's device."""
-        return [sub._dispatch_stage1(enc, lens) for sub in self.subs]
+        """Stage 1 on every shard, each on its sub-aligner's device, the
+        devices at once."""
+        return self._per_shard(lambda s, sub: sub._dispatch_stage1(enc, lens))
 
     def _dispatch_full(self, enc: np.ndarray, lens: np.ndarray) -> list:
         return self._dispatch_stage1(enc, lens)
@@ -127,11 +147,16 @@ class ShardedBWAAligner(BWAAligner):
         the global numbering, NA counting every shard's regions."""
         B = len(regions)
         merged: list[list[dict]] = [[] for _ in range(B)]
-        for s, sub in enumerate(self.subs):
+
+        def shard_hits(s, sub):
             shard_regs = [[r for r in rs if r.shard == s] for rs in regions]
             if not any(shard_regs):
+                return None
+            return sub._regions_to_hits(enc, lens, shard_regs)
+
+        for s, hits in enumerate(self._per_shard(shard_hits)):
+            if hits is None:
                 continue
-            hits = sub._regions_to_hits(enc, lens, shard_regs)
             roff = self.index.first_rid[s]
             for b in range(B):
                 for h in hits[b]:

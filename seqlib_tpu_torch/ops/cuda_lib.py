@@ -11,7 +11,12 @@ once.  ``LAUNCHES`` counts launches per kernel (one counter per C
 entry point that launches one); it is the evidence that a run went
 through a kernel.  ``MAIN_PATH`` names the kernels the aligner runs;
 the rectangle kernels K3-K5 run only on the extension bench path
-(``bench_sw``).
+(``bench_sw``).  Launches come from several host threads on a mesh
+(one per device), so every counter of the kernels' modules moves under
+one lock (``bump``, ``reset_launches``), and a library is loaded under
+another.  A wrapper launches under ``on_device(dev)``: the C entry
+points ask the CUDA runtime for the calling thread's current device,
+which must be the tensors' own.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 
 from ..native import BUILD_DIR
 
@@ -62,11 +68,21 @@ LAUNCHES = {name: 0 for name in MAIN_PATH + (
     "sw_extend_rect", "sw_extend_rect_blocked", "sw_extend_rect_interleaved")}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_counts_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _counts_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def bump(counter: dict, key: str) -> None:
+    """``counter[key] += 1`` under the counters' lock (``LAUNCHES``,
+    ``sw_cuda.ADAPTIVE_BRANCHES``)."""
+    with _counts_lock:
+        counter[key] += 1
 
 
 def _nvcc() -> str:
@@ -164,16 +180,17 @@ def ptxas_report(text: str) -> list[tuple[str, int, int, int, int]]:
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of one kernel library (built on first use)."""
-    lib = _libs.get(name)
-    if lib is None:
-        job = _start_build(name)
-        if job is not None:
-            _finish_build(name, job)
-        lib = ctypes.CDLL(_so_path(name))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _CI
-        _libs[name] = lib
+    with _load_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            job = _start_build(name)
+            if job is not None:
+                _finish_build(name, job)
+            lib = ctypes.CDLL(_so_path(name))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _CI
+            _libs[name] = lib
     return lib
 
 
@@ -186,3 +203,19 @@ def check(rc: int, name: str) -> None:
 def stream_ptr(device) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def on_device(name: str, dev, *tensors):
+    """The device guard of one launch: raises unless every tensor lies
+    on ``dev``, a CUDA device, and returns ``torch.cuda.device(dev)``,
+    which makes ``dev`` the calling thread's current device for the
+    launch."""
+    import torch
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on a CUDA device, not "
+                         f"{dev}")
+    for t in tensors:
+        if torch.is_tensor(t) and t.device != dev:
+            raise ValueError(f"{name}: a tensor on {t.device}, the call's "
+                             f"other inputs on {dev}")
+    return torch.cuda.device(dev)

@@ -31,7 +31,8 @@ leave it clamped to int32 on both, as the JAX package's ``_sz32`` does
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -56,10 +57,32 @@ class DeviceFMIndex:
     seq_len: int
     l_pac: int
     sa_intv: int = 1         # 1: the full SA; else sampled by rank
+    # copies on other devices (``to``), made once each
+    _copies: dict = field(default_factory=dict, repr=False, compare=False)
+    _copies_lock: threading.Lock = field(default_factory=threading.Lock,
+                                         repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.blocks.device
+
+    def to(self, device) -> "DeviceFMIndex":
+        """This index on ``device``: itself where it lies there already,
+        else a copy of every tensor, made once per device and kept (a
+        mesh replicates its index so)."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        with self._copies_lock:
+            out = self._copies.get(dev)
+            if out is None:
+                out = DeviceFMIndex(
+                    blocks=self.blocks.to(dev), sa=self.sa.to(dev),
+                    L2=self.L2.to(dev), L2_host=self.L2_host,
+                    primary=self.primary, seq_len=self.seq_len,
+                    l_pac=self.l_pac, sa_intv=self.sa_intv)
+                self._copies[dev] = out
+        return out
 
     @property
     def wide(self) -> bool:
@@ -218,6 +241,86 @@ def rank_words(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
 
 def _take4(a4: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return a4.gather(-1, c[..., None])[..., 0]
+
+
+def backward_ext(fm: DeviceFMIndex, l: torch.Tensor, u: torch.Tensor,
+                 c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[l, u) -> the interval of c + pattern (int64), batched over the
+    leading dims; both boundary ranks in one stacked gather."""
+    c = c.to(torch.int64)
+    lu = torch.stack([l.to(torch.int64), u.to(torch.int64)])
+    r = rank_full(fm, c.expand_as(lu), lu)
+    C = fm.L2[c] + 1
+    return C + r[0], C + r[1]
+
+
+# ---------------------------------------------------------------------------
+# greedy seed scan: maximal exact matches ending at e, restart at s - 2
+# ---------------------------------------------------------------------------
+
+def collect_seeds(fm: DeviceFMIndex, reads: torch.Tensor, lens: torch.Tensor,
+                  max_seeds: int = 16, min_seed_len: int = 19) -> dict:
+    """Lockstep greedy seed scan over a read batch (the JAX package's
+    ``collect_seeds``, its data-parallel seed step).
+
+    For each read (nt4 codes, padded with 4) scan the end e from len - 1
+    down; backward-extend to the maximal start s; emit [s, e] with its
+    SA interval when it is at least ``min_seed_len`` long; restart at
+    e' = s - 2, skipping the mismatching base.  The trip count is
+    L + max_seeds + 2 steps, two a round and the test "a read is still
+    scanning" before each round, as in the JAX package; a finished read
+    stays as it is.
+
+    Returns qbeg, qend (exclusive) int32 [B, max_seeds], intv_l and
+    intv_sz int64 [B, max_seeds], n_seeds int32 [B]."""
+    B, L = reads.shape
+    dev = reads.device
+    i64 = torch.int64
+    n1 = fm.seq_len + 1
+    e = lens.to(i64) - 1                 # current end position
+    p = e.clone()                        # next char to consume
+    l = torch.zeros(B, dtype=i64, device=dev)
+    u = torch.full((B,), n1, dtype=i64, device=dev)
+    n = torch.zeros(B, dtype=i64, device=dev)   # seeds emitted
+    qbeg = torch.zeros((B, max_seeds), dtype=i64, device=dev)
+    qend, intv_l, intv_sz = (torch.zeros_like(qbeg) for _ in range(3))
+    s_iota = torch.arange(max_seeds, dtype=i64, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)
+    codes = reads.to(i64)
+
+    def step(e, p, l, u, n):
+        active = e >= 0
+        c = torch.where(active & (p >= 0),
+                        codes[rows, torch.clamp(p, min=0)], 4)
+        valid_c = c < 4
+        nl, nu = backward_ext(fm, l, u, torch.clamp(c, max=3))
+        nl = torch.where(valid_c, nl, 0)
+        nu = torch.where(valid_c, nu, 0)
+        dead = nu <= nl
+        hit_start = p < 0
+        # emit [p + 1, e] when the extension dies or runs off the start
+        ok = active & (dead | hit_start) & (e - p >= min_seed_len) \
+            & (u > l) & (n < max_seeds)
+        hot = ok[:, None] & (s_iota == n[:, None])
+        qbeg[hot] = (p + 1)[:, None].expand_as(hot)[hot]
+        qend[hot] = (e + 1)[:, None].expand_as(hot)[hot]
+        intv_l[hot] = l[:, None].expand_as(hot)[hot]
+        intv_sz[hot] = (u - l)[:, None].expand_as(hot)[hot]
+        n = n + ok.to(i64)
+        adv = active & ~dead & ~hit_start
+        restart = active & (dead | hit_start)
+        new_e = torch.where(restart, p - 1, e)
+        return (new_e, torch.where(adv, p - 1, new_e),
+                torch.where(adv, nl, 0), torch.where(adv, nu, n1), n)
+
+    it = 0
+    while bool((e >= 0).any()) and it < L + max_seeds + 2:
+        for _ in range(2):
+            e, p, l, u, n = step(e, p, l, u, n)
+        it += 2
+    i32 = torch.int32
+    return dict(qbeg=qbeg.to(i32), qend=qend.to(i32), intv_l=intv_l,
+                intv_sz=intv_sz, n_seeds=n.to(i32))
 
 
 # ---------------------------------------------------------------------------

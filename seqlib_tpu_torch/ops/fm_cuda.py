@@ -27,9 +27,8 @@ def smem_machine_cuda(fm, reads, lens, x0, min_intv, active,
                       p3_seeds: int = 0, p3_max_intv: int = 20):
     """Launch kernel K2 on CUDA tensors (raises on anything else)."""
     dev = reads.device
-    if dev.type != "cuda" or fm.blocks.device != dev:
-        raise ValueError("smem_machine_cuda: reads and index must be on "
-                         "the same CUDA device")
+    cuda_lib.on_device("smem_machine_cuda", dev, lens, x0, min_intv, active)
+    guard = cuda_lib.on_device("smem_machine_cuda", dev, fm.blocks)
     B, L = reads.shape
     lib = cuda_lib.load(KERNEL)
     if not 1 <= C <= lib.smem_machine_max_stack():
@@ -74,18 +73,19 @@ def smem_machine_cuda(fm, reads, lens, x0, min_intv, active,
     vp = ctypes.c_void_p
     ci = ctypes.c_int
     entry = lib.smem_machine_wide if wide else lib.smem_machine
-    rc = entry(
-        vp(fm.blocks.data_ptr()), vp(reads_u8.data_ptr()),
-        vp(lens32.data_ptr()), vp(x032.data_ptr()), vp(mi32.data_ptr()),
-        vp(act.data_ptr()), ci(B), ci(L), ct(fm.primary), L2, ci(S), ci(C),
-        ci(min_seed_len), ci(max_rounds), ci(step_cap), ci(P3),
-        ci(p3_max_intv), vp(qb.data_ptr()), vp(qe.data_ptr()),
-        vp(il.data_ptr()), vp(isz.data_ptr()), vp(n_seeds.data_ptr()),
-        vp(n_drop.data_ptr()), vp(pqb.data_ptr()), vp(pqe.data_ptr()),
-        vp(pil.data_ptr()), vp(pisz.data_ptr()), vp(pn.data_ptr()),
-        cuda_lib.stream_ptr(dev))
+    with guard:
+        rc = entry(
+            vp(fm.blocks.data_ptr()), vp(reads_u8.data_ptr()),
+            vp(lens32.data_ptr()), vp(x032.data_ptr()), vp(mi32.data_ptr()),
+            vp(act.data_ptr()), ci(B), ci(L), ct(fm.primary), L2, ci(S),
+            ci(C), ci(min_seed_len), ci(max_rounds), ci(step_cap), ci(P3),
+            ci(p3_max_intv), vp(qb.data_ptr()), vp(qe.data_ptr()),
+            vp(il.data_ptr()), vp(isz.data_ptr()), vp(n_seeds.data_ptr()),
+            vp(n_drop.data_ptr()), vp(pqb.data_ptr()), vp(pqe.data_ptr()),
+            vp(pil.data_ptr()), vp(pisz.data_ptr()), vp(pn.data_ptr()),
+            cuda_lib.stream_ptr(dev))
     cuda_lib.check(rc, KERNEL)
-    cuda_lib.LAUNCHES[KERNEL] += 1
+    cuda_lib.bump(cuda_lib.LAUNCHES, KERNEL)
     out = dict(qbeg=qb, qend=qe, intv_l=il, intv_sz=isz, n_seeds=n_seeds,
                n_dropped=n_drop)
     if P3:
@@ -100,13 +100,15 @@ def load_chase(table: torch.Tensor, n: int, out: torch.Tensor) -> None:
     thread, with K2's load path; the last row reached goes to ``out[0]``.
     A latency probe, not a kernel of the alignment path: it does not
     count as a K2 launch."""
-    if not table.is_cuda or table.dim() != 2 or not table.is_contiguous() \
-            or table.dtype != torch.int32 or out.device != table.device:
+    guard = cuda_lib.on_device("load_chase", table.device, out)
+    if table.dim() != 2 or not table.is_contiguous() \
+            or table.dtype != torch.int32:
         raise ValueError("load_chase: contiguous int32 [rows, W] CUDA table "
                          "and an out tensor on the same device")
     lib = cuda_lib.load(KERNEL)
-    rc = lib.smem_load_chase(
-        ctypes.c_void_p(table.data_ptr()), ctypes.c_int(table.shape[1]),
-        ctypes.c_int(n), ctypes.c_void_p(out.data_ptr()),
-        cuda_lib.stream_ptr(table.device))
+    with guard:
+        rc = lib.smem_load_chase(
+            ctypes.c_void_p(table.data_ptr()), ctypes.c_int(table.shape[1]),
+            ctypes.c_int(n), ctypes.c_void_p(out.data_ptr()),
+            cuda_lib.stream_ptr(table.device))
     cuda_lib.check(rc, "smem_load_chase")

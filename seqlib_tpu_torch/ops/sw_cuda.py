@@ -25,7 +25,8 @@ from .sw import RECT_MAX_LT, check_rect_shape, extend_batch, extend_rect
 KERNEL = "sw_extend"
 RECT_LIB = "sw_rect"
 
-# which branch each adaptive call took (tests check all three run)
+# which branch each adaptive call took (tests check all three run); moved
+# under cuda_lib's counters' lock
 ADAPTIVE_BRANCHES = {"narrow_only": 0, "compact_rerun": 0, "full_rerun": 0,
                      "full_band": 0}
 
@@ -67,9 +68,8 @@ def extend_batch_banded_cuda(query, qlen, target, tlen, h0,
                              zdrop: int = 0, band: int = 100):
     """Launch kernel K1 (raises on CPU tensors or unsupported shapes)."""
     dev = query.device
-    if dev.type != "cuda" or target.device != dev:
-        raise ValueError("extend_batch_banded_cuda: query and target must "
-                         "be on the same CUDA device")
+    guard = cuda_lib.on_device("extend_batch_banded_cuda", dev, target, qlen,
+                               tlen, h0)
     lib = cuda_lib.load(KERNEL)
     if not 0 < band <= lib.sw_extend_max_band():
         raise ValueError(f"extend_batch_banded_cuda: band {band} not in "
@@ -86,14 +86,15 @@ def extend_batch_banded_cuda(query, qlen, target, tlen, h0,
                             h0)
     out = torch.empty((5, M), dtype=torch.int32, device=dev)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    rc = lib.sw_extend_banded(
-        vp(q8.data_ptr()), vp(ql.data_ptr()), vp(t8.data_ptr()),
-        vp(tl.data_ptr()), vp(hh.data_ptr()), vp(out.data_ptr()),
-        ci(M), ci(Lq), ci(Lt), ci(band), ci(o_del), ci(e_del), ci(o_ins),
-        ci(e_ins), ci(match), ci(mismatch), ci(zdrop),
-        cuda_lib.stream_ptr(dev))
+    with guard:
+        rc = lib.sw_extend_banded(
+            vp(q8.data_ptr()), vp(ql.data_ptr()), vp(t8.data_ptr()),
+            vp(tl.data_ptr()), vp(hh.data_ptr()), vp(out.data_ptr()),
+            ci(M), ci(Lq), ci(Lt), ci(band), ci(o_del), ci(e_del),
+            ci(o_ins), ci(e_ins), ci(match), ci(mismatch), ci(zdrop),
+            cuda_lib.stream_ptr(dev))
     cuda_lib.check(rc, KERNEL)
-    cuda_lib.LAUNCHES[KERNEL] += 1
+    cuda_lib.bump(cuda_lib.LAUNCHES, KERNEL)
     return dict(score=out[0], qle=out[1], tle=out[2], gscore=out[3],
                 gtle=out[4])
 
@@ -122,7 +123,7 @@ def extend_batch_adaptive(query, qlen, target, tlen, h0,
               match=match, mismatch=mismatch, zdrop=zdrop)
     gap_pen = min(o_del + e_del * (w1 + 1), o_ins + e_ins * (w1 + 1))
     if band <= w1 or 0 < zdrop <= gap_pen:
-        ADAPTIVE_BRANCHES["full_band"] += 1
+        cuda_lib.bump(ADAPTIVE_BRANCHES, "full_band")
         return extend_batch_banded(query, qlen, target, tlen, h0,
                                    band=band, **kw)
     r1 = extend_batch_banded(query, qlen, target, tlen, h0, band=w1, **kw)
@@ -133,13 +134,13 @@ def extend_batch_adaptive(query, qlen, target, tlen, h0,
     n_bad = int(bad.numel())
     B = query.shape[0]
     if n_bad == 0:
-        ADAPTIVE_BRANCHES["narrow_only"] += 1
+        cuda_lib.bump(ADAPTIVE_BRANCHES, "narrow_only")
         return r1
     if n_bad > min(rerun_cap, B):
-        ADAPTIVE_BRANCHES["full_rerun"] += 1
+        cuda_lib.bump(ADAPTIVE_BRANCHES, "full_rerun")
         return extend_batch_banded(query, qlen, target, tlen, h0,
                                    band=band, **kw)
-    ADAPTIVE_BRANCHES["compact_rerun"] += 1
+    cuda_lib.bump(ADAPTIVE_BRANCHES, "compact_rerun")
     r2 = extend_batch_banded(query[bad], qlen[bad], target[bad], tlen[bad],
                              h0[bad], band=band, **kw)
     out = {}
@@ -171,9 +172,7 @@ def launch_rect(entry: str, query, qlen, target, tlen, h0,
     (``entry`` is its C name; ``nch`` only for the interleaved one) on
     CUDA tensors; raises on CPU tensors or shapes it does not take."""
     dev = query.device
-    if dev.type != "cuda" or target.device != dev:
-        raise ValueError(f"{entry}: query and target must be on the same "
-                         "CUDA device")
+    guard = cuda_lib.on_device(entry, dev, target, qlen, tlen, h0)
     lib = cuda_lib.load(RECT_LIB)
     M, Lq = query.shape
     if target.shape[0] != M:
@@ -193,12 +192,10 @@ def launch_rect(entry: str, query, qlen, target, tlen, h0,
     ptrs = [vp(x.data_ptr()) for x in (q8, ql, t8, tl, hh, out)]
     tail = [ci(o_del), ci(e_del), ci(o_ins), ci(e_ins), ci(match),
             ci(mismatch), ci(zdrop), cuda_lib.stream_ptr(dev)]
-    if nch:
-        rc = getattr(lib, entry)(*ptrs, ci(M), ci(Lq), ci(Lt), ci(nch),
-                                 *tail)
-    else:
-        rc = getattr(lib, entry)(*ptrs, ci(M), ci(Lq), ci(Lt), *tail)
+    shape = (ci(M), ci(Lq), ci(Lt)) + ((ci(nch),) if nch else ())
+    with guard:
+        rc = getattr(lib, entry)(*ptrs, *shape, *tail)
     cuda_lib.check(rc, entry)
-    cuda_lib.LAUNCHES[entry] += 1
+    cuda_lib.bump(cuda_lib.LAUNCHES, entry)
     return dict(score=out[0], qle=out[1], tle=out[2], gscore=out[3],
                 gtle=out[4])

@@ -185,6 +185,64 @@ def test_wide_and_sharded_aligners_gpu_equal_cpu(cuda, genome):
     assert g[0] == c[0] and np.array_equal(g[1], c[1])
 
 
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_their_tensors_card(two_cards, genome):
+    """K1 and K2 on cuda:1, launched while the current device is cuda:0,
+    equal their plain versions; inputs on two cards raise."""
+    c0, c1 = two_cards
+    args = _lanes(21, 512, 160, 260, c1)
+    fm = DeviceFMIndex.from_host(FMIndex.construct([("rep1", genome)]),
+                                 device=c1)
+    enc, lens, active = edge_read_batch(genome, 256, 160, seed=4)
+    kargs = [torch.from_numpy(np.asarray(a)).to(c1) for a in
+             (enc, lens, np.zeros(256, np.int32), np.ones(256, np.int32),
+              active)]
+    kw = dict(max_seeds=16, min_seed_len=19, C=8, max_rounds=160,
+              step_cap=656, p3_seeds=8, p3_max_intv=20)
+    with torch.cuda.device(c0):
+        got1 = sw_cuda.extend_batch_banded_cuda(*args, band=100, zdrop=100)
+        got2 = fm_cuda.smem_machine_cuda(fm, *kargs, **kw)
+        with pytest.raises(ValueError):
+            sw_cuda.extend_batch_banded_cuda(args[0], args[1],
+                                             args[2].to(c0), *args[3:])
+    torch.cuda.synchronize(c1)
+    want1 = extend_batch(*args, band=100, zdrop=100)
+    want2 = _smem_machine(fm, *kargs, **kw)
+    assert all(torch.equal(got1[k], want1[k]) for k in KEYS)
+    assert all(torch.equal(got2[k], want2[k]) for k in want2)
+
+
+def test_mesh_and_shards_on_two_cards_equal_one_card(two_cards, genome):
+    """A mesh over two cards and a two-shard index with one shard a card
+    give the single card's records."""
+    from seqlib_tpu_torch.align import ShardedBWAAligner
+    from seqlib_tpu_torch.index import ShardedFMIndex
+    from seqlib_tpu_torch.parallel import Mesh
+    c0, c1 = two_cards
+    corpus = simulate_reads(genome, 600, seed=12)
+    seqs, names = [s for _, s in corpus], [n for n, _ in corpus]
+    idx = FMIndex.construct([("rep1", genome)])
+    want = BWAAligner(idx, device=c0).align_batch_bam(seqs, names, sam=True)
+    mesh = BWAAligner(idx, mesh=Mesh([c0, c1]))
+    cuda_lib.reset_launches()
+    got = mesh.align_batch_bam(seqs, names, sam=True)
+    assert got[0] == want[0] and np.array_equal(got[1], want[1])
+    assert all(cuda_lib.LAUNCHES[k] > 0 for k in cuda_lib.MAIN_PATH)
+    contigs = [("a", genome[:120_000]), ("b", genome[120_000:])]
+    sidx = ShardedFMIndex.construct(contigs, max_shard_bp=130_000)
+    one = ShardedBWAAligner(sidx, devices=[c0]).align_batch_bam(
+        seqs, names, sam=True)
+    two = ShardedBWAAligner(sidx, devices=[c0, c1]).align_batch_bam(
+        seqs, names, sam=True)
+    assert two[0] == one[0] and np.array_equal(two[1], one[1])
+
+
 @pytest.mark.parametrize("Lq,w,zdrop", [
     # past the 4096 rows of the JAX package's packed tie-break
     (4097, 100, 100), (4097, 32, 0),

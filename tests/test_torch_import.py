@@ -80,7 +80,11 @@ def test_port_imports_no_jax_nor_jax_package():
               "seqlib_tpu_torch.stats", "seqlib_tpu_torch.stats.coverage",
               "seqlib_tpu_torch.plot", "seqlib_tpu_torch.plot.seqplot",
               "seqlib_tpu_torch.index.sharded",
-              "seqlib_tpu_torch.align.sharded"):
+              "seqlib_tpu_torch.align.sharded",
+              "seqlib_tpu_torch.parallel", "seqlib_tpu_torch.parallel.mesh",
+              "seqlib_tpu_torch.parallel.multihost",
+              "seqlib_tpu_torch.parallel.scaling",
+              "seqlib_tpu_torch.parallel.dryrun"):
         assert m in res["mods"], m
 
 

@@ -21,7 +21,10 @@ place, MAPQ, CIGAR, NM, AS), except where its primary is one of several
 equal-score hits: the sharded aligner walks regions by global keys,
 which order such hits differently, so another of them becomes primary;
 such a read must keep the same alignments.  The JAX side runs once per
-fixture (its CPU runs are the costly part).
+fixture (its CPU runs are the costly part), with its global-DP calls
+padded to their exact row counts instead of ``aligner._bucket``'s 64,
+as tests/test_torch_pairing.py's run is: rows are independent, so the
+padding changes no output, and 64 reads are a bucket of 64 either way.
 """
 
 import collections
@@ -38,6 +41,7 @@ import seqlib_tpu.index.sharded as jax_sharded
 from regen_golden import make_repeat_genome, make_repeat_reads
 from seqlib_tpu import cli as jax_cli
 from seqlib_tpu.align import ShardedBWAAligner as JaxShardedAligner
+from seqlib_tpu.align import aligner as jax_aligner_module
 from seqlib_tpu.align import pairing as jpair
 from seqlib_tpu.index import ShardedFMIndex as JaxShardedFMIndex
 from seqlib_tpu_torch import cli
@@ -146,6 +150,15 @@ def test_write_load_files_equal_jax(indexes, tmp_path):
         ShardedFMIndex.load(str(tmp_path / "bad"))
 
 
+@contextlib.contextmanager
+def _exact_jax_rows():
+    """The JAX package's row buckets at their exact counts for one run."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_aligner_module, "_bucket",
+                   lambda n, mn=64: max(int(n), 1))
+        yield
+
+
 @pytest.fixture(scope="module")
 def aligners(indexes):
     js, ts = indexes
@@ -161,12 +174,13 @@ def jax_records(aligners, corpus):
     (``_payload_batch`` without columnar hits); the payload here is that
     serialisation."""
     ja = aligners[0]
-    enc, lens = ja._encode_batch([s for _, s in corpus])
-    s1 = ja._dispatch_stage1(jnp.asarray(enc),
-                             jnp.asarray(lens.astype(np.int32)))
-    chunk = [Read(n, s) for n, s in corpus]
-    recs = [rs for _, rs in
-            ja._finish_batch(chunk, enc, lens, s1, False, 0.9, 10)]
+    with _exact_jax_rows():
+        enc, lens = ja._encode_batch([s for _, s in corpus])
+        s1 = ja._dispatch_stage1(jnp.asarray(enc),
+                                 jnp.asarray(lens.astype(np.int32)))
+        chunk = [Read(n, s) for n, s in corpus]
+        recs = [rs for _, rs in
+                ja._finish_batch(chunk, enc, lens, s1, False, 0.9, 10)]
     hdr = ja.index.header_from_index()
     sam = [[r.to_sam(hdr) for r in rs] for rs in recs]
     payload = "".join(ln + "\n" for rs in sam for ln in rs).encode()
@@ -281,7 +295,8 @@ def jax_cli_sam(aligners, cli_data, jax_records):
     names = [n for n, _ in _read_fastq(cli_data / "r.fq")]
     seqs2 = [s for _, s in _read_fastq(cli_data / "m2.fq")]
     out1 = [copy.deepcopy(rs) for rs in recs1]
-    out2 = ja.align_batch(seqs2, names)
+    with _exact_jax_rows():
+        out2 = ja.align_batch(seqs2, names)
     for a, b in zip(out1, out2):
         jpair.mark_supplementary(a)
         jpair.mark_supplementary(b)
