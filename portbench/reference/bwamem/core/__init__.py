@@ -1,0 +1,1 @@
+"""Frozen copy of part of seqlib_tpu_torch/core."""
