@@ -1,0 +1,19 @@
+"""The device's idle share of the traced pass while the stream's
+dispatching thread was inside ``stream.read``, ``stream.encode`` or
+``stream.caller`` (pulling reads, encoding the next batch, or
+suspended at a yield in the caller's code): 100 x the device-idle
+seconds (the gaps between the profiler's device events) that the
+thread's spans cover, over the pass's wall time.  The split of the
+idle time, the unattributed rest and the ten longest gaps, each named
+by the innermost span with its stage and site, go to standard error
+once a pass."""
+
+from __future__ import annotations
+
+from . import _spans
+
+probe = _spans.probe
+
+
+def read(ctx):
+    return _spans.idle_pct(ctx, "prep")

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as _fut
+import itertools
 import math
 import threading
 from dataclasses import dataclass
@@ -63,6 +64,7 @@ import numpy as np
 import torch
 
 from .. import native as _native
+from .. import profiling
 from ..core.cigar import Cigar, CigarField
 from ..core.record import FREVERSE, FSECONDARY, BamRecord
 from ..core.seq import NT4_TABLE, revcomp
@@ -321,10 +323,11 @@ class BWAAligner:
         opt = self.options
         enc_lens = np.concatenate(
             [enc, lens.astype("<u4").view(np.uint8).reshape(-1, 4)], axis=1)
+        with profiling.upload("reads"):
+            enc_lens = torch.from_numpy(enc_lens).to(dev)
         return align_full(
-            fm, text, torch.from_numpy(enc_lens).to(dev),
-            **self._stage1_kwargs(), T=opt.T, mask_level=opt.mask_level,
-            mask_level_redun=opt.mask_level_redun,
+            fm, text, enc_lens, **self._stage1_kwargs(), T=opt.T,
+            mask_level=opt.mask_level, mask_level_redun=opt.mask_level_redun,
             glob_band=2 * opt.w + 8)
 
     def _stage1_kwargs(self) -> dict:
@@ -728,10 +731,14 @@ class BWAAligner:
     def _slice_cols(self, enc, lens, res):
         """``_hits_cols_from_full`` of one device program's outputs, None
         on an overflow."""
+        with profiling.span("finish.fetch"):
+            regions, snm, packed = (r.cpu().numpy() for r in res)
+        with profiling.span("finish.cols"):
+            return self._host_cols(enc, lens, regions, snm, packed)
+
+    def _host_cols(self, enc, lens, regions, snm, packed):
+        """``_slice_cols`` on the outputs fetched to the host."""
         opt = self.options
-        regions = res[0].cpu().numpy()
-        snm = res[1].cpu().numpy()
-        packed = res[2].cpu().numpy()
         B = enc.shape[0]
         C = REGION_SLOTS
         fields = regions[:, :C * NFIELD].reshape(B, C, NFIELD) \
@@ -941,11 +948,12 @@ class BWAAligner:
         seq_off = np.zeros(B + 1, np.int64)
         np.cumsum(np.array([len(x) for x in sq], np.int64), out=seq_off[1:])
         ref_blob, ref_off = self._ref_name_arrays()
-        return _native.bam_encode_hits(
-            cols, np.frombuffer(b"".join(qn), np.uint8), qname_off,
-            np.frombuffer(b"".join(sq), np.uint8), seq_off,
-            ref_blob, ref_off, hardclip, ksf, max_secondary,
-            opt.XA_drop_ratio, opt.max_XA_hits, mode=1 if sam else 0)
+        with profiling.span("finish.encode"):
+            return _native.bam_encode_hits(
+                cols, np.frombuffer(b"".join(qn), np.uint8), qname_off,
+                np.frombuffer(b"".join(sq), np.uint8), seq_off,
+                ref_blob, ref_off, hardclip, ksf, max_secondary,
+                opt.XA_drop_ratio, opt.max_XA_hits, mode=1 if sam else 0)
 
     def align_batch_bam(self, seqs: list[str], names: list[str],
                         hardclip: bool = False, keep_sec_frac: float = 0.9,
@@ -966,28 +974,49 @@ class BWAAligner:
     def _stream(self, read_iter, batch_size: int, workers: int, finish):
         """Batches of ``batch_size`` reads: each dispatched to the device
         in turn, ``finish(chunk, enc, lens, res)`` on a small thread pool
-        while the next batch runs; yields finish's results in order."""
+        while the next batch runs; yields finish's results in order.
 
-        def batches():
-            buf = []
-            for r in read_iter:
-                buf.append(r)
-                if len(buf) >= batch_size:
-                    yield buf
-                    buf = []
-            if buf:
-                yield buf
+        Spans while tracing is on (``profiling``): on this thread one
+        ``stream.batch`` a batch, holding ``stream.read`` (pulling its
+        reads), ``stream.encode``, ``align.full`` (the device program's
+        dispatch), and ``stream.wait`` (blocked on an older batch's
+        finish) and ``stream.caller`` (suspended at a yield) for the
+        batches it hands over; the last batches' waits and yields after
+        the reads run out are spans of their own.  On a worker,
+        ``stream.finish`` with the batch's id."""
 
+        def finish_batch(bid, chunk, enc, lens, res):
+            with profiling.span("stream.finish", batch=bid):
+                out = finish(chunk, enc, lens, res)
+                profiling.device_times(bid)
+            return out
+
+        def hand_over(fut, bid=None):
+            with profiling.span("stream.wait", batch=bid):
+                out = fut.result()
+            with profiling.span("stream.caller", batch=bid):
+                yield out
+
+        reads = iter(read_iter)
+        end = object()
         with _fut.ThreadPoolExecutor(max(workers, 1)) as pool:
             inflight: list = []
-            for chunk in batches():
-                enc, lens = self._encode_batch([r.seq for r in chunk])
-                res = self._dispatch_full(enc, lens)
-                inflight.append(pool.submit(finish, chunk, enc, lens, res))
-                while len(inflight) >= max(workers, 1) + 1:
-                    yield inflight.pop(0).result()
-            for f in inflight:
-                yield f.result()
+            while (first := next(reads, end)) is not end:
+                bid = profiling.new_batch()
+                with profiling.span("stream.batch", batch=bid):
+                    with profiling.span("stream.read"):
+                        chunk = [first, *itertools.islice(reads,
+                                                          batch_size - 1)]
+                    with profiling.span("stream.encode"):
+                        enc, lens = self._encode_batch([r.seq for r in chunk])
+                    with profiling.span("align.full", device=self.device):
+                        res = self._dispatch_full(enc, lens)
+                    inflight.append((bid, pool.submit(
+                        finish_batch, bid, chunk, enc, lens, res)))
+                    while len(inflight) >= max(workers, 1) + 1:
+                        yield from hand_over(inflight.pop(0)[1])
+            for bid, fut in inflight:
+                yield from hand_over(fut, bid)
 
     def align_stream_bam(self, read_iter, batch_size: int = 4096,
                          hardclip: bool = False, keep_sec_frac: float = 0.9,

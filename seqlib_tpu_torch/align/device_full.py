@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import profiling
 from .device_pipeline import POS_BIG, dp_rows, global_and_traceback, \
     seed_chain_extend, OP_NONE
 
@@ -75,8 +76,10 @@ def _mark_walk_order(score, live):
     C = score.shape[1]
     rank = torch.cumsum(live.to(I64), dim=1) - 1
     hashes = np.array([_hash64(i) for i in range(C)], dtype=np.uint64)
-    hrank = torch.as_tensor(np.argsort(np.argsort(hashes)).astype(np.int64),
-                            device=score.device)
+    with profiling.upload("hash_rank"):
+        hrank = torch.as_tensor(
+            np.argsort(np.argsort(hashes)).astype(np.int64),
+            device=score.device)
     k_tie = torch.where(live, hrank[rank.clamp(0, C - 1)], BIG)
     order = torch.sort(k_tie, dim=1, stable=True).indices
     return _resort(order, torch.where(live, -score, BIG))
@@ -120,119 +123,129 @@ def align_full(fm, text, enc_lens, l_pac: int,
         split_len=split_len, split_width=split_width,
         min_chain_weight=min_chain_weight,
         max_chain_extend=max_chain_extend, max_mem_intv=max_mem_intv)
-    C = out["keep"].shape[1]
-    order1 = _dedup_walk_order(out["score"], out["rb"], out["qb"],
-                               out["re"], out["keep"])
+    with profiling.span("dedup_mark", device=dev):
+        C = out["keep"].shape[1]
+        order1 = _dedup_walk_order(out["score"], out["rb"], out["qb"],
+                                   out["re"], out["keep"])
 
-    def pick(x, order):
-        return x.gather(1, order)
+        def pick(x, order):
+            return x.gather(1, order)
 
-    qb, qe = pick(out["qb"], order1), pick(out["qe"], order1)
-    rb, re = pick(out["rb"], order1), pick(out["re"], order1)
-    score = pick(out["score"], order1)
-    valid = pick(out["keep"], order1)
+        qb, qe = pick(out["qb"], order1), pick(out["qe"], order1)
+        rb, re = pick(out["rb"], order1), pick(out["re"], order1)
+        score = pick(out["score"], order1)
+        valid = pick(out["keep"], order1)
 
-    # ---- mem_sort_dedup_patch -----------------------------------------
-    dup = torch.zeros((B, C), dtype=torch.bool, device=dev)
-    for j in range(1, C):
-        dj = torch.zeros(B, dtype=torch.bool, device=dev)
-        for i in range(j):
-            inter = torch.minimum(re[:, i], re[:, j]) \
-                - torch.maximum(rb[:, i], rb[:, j])
-            minw = torch.minimum(re[:, i] - rb[:, i], re[:, j] - rb[:, j])
-            qover = torch.minimum(qe[:, i], qe[:, j]) \
-                - torch.maximum(qb[:, i], qb[:, j])
-            o = (inter > 0) & (inter.to(torch.float32)
-                               >= mask_level_redun
-                               * minw.to(torch.float32)) & (qover > 0)
-            dj = dj | (valid[:, i] & ~dup[:, i] & o)
-        dup[:, j] = dup[:, j] | (valid[:, j] & dj)
+        # ---- mem_sort_dedup_patch -------------------------------------
+        dup = torch.zeros((B, C), dtype=torch.bool, device=dev)
+        for j in range(1, C):
+            dj = torch.zeros(B, dtype=torch.bool, device=dev)
+            for i in range(j):
+                inter = torch.minimum(re[:, i], re[:, j]) \
+                    - torch.maximum(rb[:, i], rb[:, j])
+                minw = torch.minimum(re[:, i] - rb[:, i],
+                                     re[:, j] - rb[:, j])
+                qover = torch.minimum(qe[:, i], qe[:, j]) \
+                    - torch.maximum(qb[:, i], qb[:, j])
+                o = (inter > 0) & (inter.to(torch.float32)
+                                   >= mask_level_redun
+                                   * minw.to(torch.float32)) & (qover > 0)
+                dj = dj | (valid[:, i] & ~dup[:, i] & o)
+            dup[:, j] = dup[:, j] | (valid[:, j] & dj)
 
-    order2 = _mark_walk_order(score, valid & ~dup)
-    qb, qe = pick(qb, order2), pick(qe, order2)
-    rb, re = pick(rb, order2), pick(re, order2)
-    score = pick(score, order2)
-    live_m = pick(valid & ~dup, order2)
+        order2 = _mark_walk_order(score, valid & ~dup)
+        qb, qe = pick(qb, order2), pick(qe, order2)
+        rb, re = pick(rb, order2), pick(re, order2)
+        score = pick(score, order2)
+        live_m = pick(valid & ~dup, order2)
 
-    # ---- mem_mark_primary_se -------------------------------------------
-    sub_tmp = max(match + mismatch, o_del + e_del, o_ins + e_ins)
-    sec = [torch.full((B,), -1, dtype=I64, device=dev) for _ in range(C)]
-    sub = [torch.zeros(B, dtype=I64, device=dev) for _ in range(C)]
-    subn = [torch.zeros(B, dtype=I64, device=dev) for _ in range(C)]
-    live = [live_m[:, j] for j in range(C)]
-    for j in range(1, C):
-        placed = torch.zeros(B, dtype=torch.bool, device=dev)
-        for i in range(j):
-            emin = torch.minimum(qe[:, i], qe[:, j])
-            bmax = torch.maximum(qb[:, i], qb[:, j])
-            minl = torch.minimum(qe[:, i] - qb[:, i], qe[:, j] - qb[:, j])
-            ov = (emin > bmax) & ((emin - bmax).to(torch.float32)
-                                  >= mask_level * minl.to(torch.float32))
-            hit = live[j] & live[i] & (sec[i] == -1) & ov & ~placed
-            sec[j] = torch.where(hit, i, sec[j])
-            sub[i] = torch.where(hit & (sub[i] == 0), score[:, j], sub[i])
-            subn[i] = torch.where(hit & (score[:, i] - score[:, j] <= sub_tmp),
-                                  subn[i] + 1, subn[i])
-            placed = placed | hit
-    sec_a = torch.stack(sec, dim=1)
-    sub_a = torch.stack(sub, dim=1)
-    subn_a = torch.stack(subn, dim=1)
-    live_a = torch.stack(live, dim=1)
+        # ---- mem_mark_primary_se --------------------------------------
+        sub_tmp = max(match + mismatch, o_del + e_del, o_ins + e_ins)
+        sec = [torch.full((B,), -1, dtype=I64, device=dev) for _ in range(C)]
+        sub = [torch.zeros(B, dtype=I64, device=dev) for _ in range(C)]
+        subn = [torch.zeros(B, dtype=I64, device=dev) for _ in range(C)]
+        live = [live_m[:, j] for j in range(C)]
+        for j in range(1, C):
+            placed = torch.zeros(B, dtype=torch.bool, device=dev)
+            for i in range(j):
+                emin = torch.minimum(qe[:, i], qe[:, j])
+                bmax = torch.maximum(qb[:, i], qb[:, j])
+                minl = torch.minimum(qe[:, i] - qb[:, i],
+                                     qe[:, j] - qb[:, j])
+                ov = (emin > bmax) & ((emin - bmax).to(torch.float32)
+                                      >= mask_level * minl.to(torch.float32))
+                hit = live[j] & live[i] & (sec[i] == -1) & ov & ~placed
+                sec[j] = torch.where(hit, i, sec[j])
+                sub[i] = torch.where(hit & (sub[i] == 0), score[:, j],
+                                     sub[i])
+                subn[i] = torch.where(
+                    hit & (score[:, i] - score[:, j] <= sub_tmp),
+                    subn[i] + 1, subn[i])
+                placed = placed | hit
+        sec_a = torch.stack(sec, dim=1)
+        sub_a = torch.stack(sub, dim=1)
+        subn_a = torch.stack(subn, dim=1)
+        live_a = torch.stack(live, dim=1)
 
     # ---- global-DP row compaction ------------------------------------
-    Lt = L + min(2 * w, 128)
-    span_t = re - rb
-    span_q = qe - qb
-    wide = live_a & ((span_t > Lt) | (span_q > L))
-    perfect = live_a & (score == span_q * match) & (span_t == span_q)
-    need = (live_a & ~wide & ~perfect & (score >= T)).reshape(-1)
-    dest = torch.cumsum(need.to(I64), dim=0) - 1
-    M2 = dp_rows(B)
-    over = need & (dest >= M2)
-    used = need & ~over
-    g_n = int(used.sum())
-    # rows [g_n, M2) are empty (ql = tl = 0): their DP result is the
-    # trivial one (score 0, NM 0, no ops), so only g_n rows run
-    rows = torch.nonzero(used).flatten()
-    g_b = torch.div(rows, C, rounding_mode="floor")
-    g_qb = qb.reshape(-1)[rows]
-    g_qe = qe.reshape(-1)[rows]
-    g_rb = rb.reshape(-1)[rows]
-    g_re = re.reshape(-1)[rows]
-    jq = torch.arange(L, device=dev)[None, :]
-    ql_g = g_qe - g_qb
-    qwin = reads[g_b].gather(1, (g_qb[:, None] + jq).clamp(0, L - 1))
-    qwin = torch.where(jq < ql_g[:, None], qwin, 4).to(torch.uint8)
-    jt = torch.arange(Lt, device=dev)[None, :]
-    tl_g = g_re - g_rb
-    twin = text[(g_rb[:, None] + jt).clamp(0, text.shape[0] - 1)]
-    twin = torch.where(jt < tl_g[:, None], twin, 4).to(torch.uint8)
-    gscore, packed, nm = global_and_traceback(
-        qwin, ql_g, twin, tl_g, o_del=o_del, e_del=e_del, o_ins=o_ins,
-        e_ins=e_ins, match=match, mismatch=mismatch, band=glob_band)
-    snm = torch.zeros((M2, 2), dtype=I32, device=dev)
-    snm[:g_n, 0] = gscore
-    snm[:g_n, 1] = nm
-    ops = torch.full((M2, packed.shape[1]), OP_NONE * 0x55,
-                     dtype=torch.uint8, device=dev)
-    ops[:g_n] = packed
+    with profiling.span("global_dp", device=dev):
+        Lt = L + min(2 * w, 128)
+        span_t = re - rb
+        span_q = qe - qb
+        wide = live_a & ((span_t > Lt) | (span_q > L))
+        perfect = live_a & (score == span_q * match) & (span_t == span_q)
+        need = (live_a & ~wide & ~perfect & (score >= T)).reshape(-1)
+        dest = torch.cumsum(need.to(I64), dim=0) - 1
+        M2 = dp_rows(B)
+        over = need & (dest >= M2)
+        used = need & ~over
+        with profiling.sync("global_dp.rows"):
+            g_n = int(used.sum())
+        profiling.count("global_dp.rows", g_n)
+        # rows [g_n, M2) are empty (ql = tl = 0): their DP result is the
+        # trivial one (score 0, NM 0, no ops), so only g_n rows run
+        with profiling.sync("global_dp.nonzero"):
+            rows = torch.nonzero(used).flatten()
+        g_b = torch.div(rows, C, rounding_mode="floor")
+        g_qb = qb.reshape(-1)[rows]
+        g_qe = qe.reshape(-1)[rows]
+        g_rb = rb.reshape(-1)[rows]
+        g_re = re.reshape(-1)[rows]
+        jq = torch.arange(L, device=dev)[None, :]
+        ql_g = g_qe - g_qb
+        qwin = reads[g_b].gather(1, (g_qb[:, None] + jq).clamp(0, L - 1))
+        qwin = torch.where(jq < ql_g[:, None], qwin, 4).to(torch.uint8)
+        jt = torch.arange(Lt, device=dev)[None, :]
+        tl_g = g_re - g_rb
+        twin = text[(g_rb[:, None] + jt).clamp(0, text.shape[0] - 1)]
+        twin = torch.where(jt < tl_g[:, None], twin, 4).to(torch.uint8)
+        gscore, packed, nm = global_and_traceback(
+            qwin, ql_g, twin, tl_g, o_del=o_del, e_del=e_del, o_ins=o_ins,
+            e_ins=e_ins, match=match, mismatch=mismatch, band=glob_band)
+        snm = torch.zeros((M2, 2), dtype=I32, device=dev)
+        snm[:g_n, 0] = gscore
+        snm[:g_n, 1] = nm
+        ops = torch.full((M2, packed.shape[1]), OP_NONE * 0x55,
+                         dtype=torch.uint8, device=dev)
+        ops[:g_n] = packed
 
     # ---- packed per-region output ------------------------------------
-    flags = (live_a.to(I64) * FLAG_EMIT
-             | wide.to(I64) * FLAG_WIDE
-             | over.reshape(B, C).to(I64) * FLAG_OVER
-             | perfect.to(I64) * FLAG_PERFECT)
-    dprow = torch.where(used.reshape(B, C), dest.reshape(B, C), -1)
-    fields = torch.stack([qb, qe, rb, re, score, sub_a, subn_a, sec_a,
-                          flags, dprow], dim=2)
-    extra = torch.stack([
-        out["rep_cov"].to(I64),
-        live_a.sum(dim=1),
-        out["occ_clip"].to(I64),
-        out["seeds_full"].to(I64),
-        out["n_seg"].to(I64),
-        torch.full((B,), g_n, dtype=I64, device=dev),
-        torch.full((B,), out["n_dp"], dtype=I64, device=dev),
-        out["esc_over"].to(I64)], dim=1)
-    regions = torch.cat([fields.reshape(B, C * NFIELD), extra], dim=1)
-    return regions.to(I64 if fm.wide else I32), snm, ops
+    with profiling.span("pack", device=dev):
+        flags = (live_a.to(I64) * FLAG_EMIT
+                 | wide.to(I64) * FLAG_WIDE
+                 | over.reshape(B, C).to(I64) * FLAG_OVER
+                 | perfect.to(I64) * FLAG_PERFECT)
+        dprow = torch.where(used.reshape(B, C), dest.reshape(B, C), -1)
+        fields = torch.stack([qb, qe, rb, re, score, sub_a, subn_a, sec_a,
+                              flags, dprow], dim=2)
+        extra = torch.stack([
+            out["rep_cov"].to(I64),
+            live_a.sum(dim=1),
+            out["occ_clip"].to(I64),
+            out["seeds_full"].to(I64),
+            out["n_seg"].to(I64),
+            torch.full((B,), g_n, dtype=I64, device=dev),
+            torch.full((B,), out["n_dp"], dtype=I64, device=dev),
+            out["esc_over"].to(I64)], dim=1)
+        regions = torch.cat([fields.reshape(B, C * NFIELD), extra], dim=1)
+        return regions.to(I64 if fm.wide else I32), snm, ops

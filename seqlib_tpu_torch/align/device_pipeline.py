@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from ..ops.fm import DeviceFMIndex, sa_lookup, smem_collect, smem_reseed
 from ..ops.sw import (BIT_EEXT, BIT_FEXT, BIT_MIS, DIR_E, DIR_M,
                       global_batch)
@@ -60,48 +61,51 @@ def seed_and_locate(fm: DeviceFMIndex, reads, lens,
     (-1 invalid); rep_cov, occ_clip, seeds_full [B]."""
     B = reads.shape[0]
     dev = reads.device
-    p3 = p3_seeds if max_mem_intv > 0 else 0
-    seeds = smem_collect(fm, reads, lens, max_seeds=max_seeds,
-                         min_seed_len=min_seed_len, p3_seeds=p3,
-                         p3_max_intv=max_mem_intv)
-    n, sz, il = seeds["n_seeds"], seeds["intv_sz"], seeds["intv_l"]
-    qb_s, qe_s = seeds["qbeg"], seeds["qend"]
-    in_range = torch.arange(max_seeds, device=dev)[None, :] < n[:, None]
-    repetitive = in_range & (sz > max_occ)
-    seed_valid = in_range & (sz > 0) & (sz <= max_occ)
+    with profiling.span("seed", device=dev):
+        p3 = p3_seeds if max_mem_intv > 0 else 0
+        seeds = smem_collect(fm, reads, lens, max_seeds=max_seeds,
+                             min_seed_len=min_seed_len, p3_seeds=p3,
+                             p3_max_intv=max_mem_intv)
+        n, sz, il = seeds["n_seeds"], seeds["intv_sz"], seeds["intv_l"]
+        qb_s, qe_s = seeds["qbeg"], seeds["qend"]
+        in_range = torch.arange(max_seeds, device=dev)[None, :] < n[:, None]
+        repetitive = in_range & (sz > max_occ)
+        seed_valid = in_range & (sz > 0) & (sz <= max_occ)
 
-    seed_len = qe_s - qb_s
-    qualifies = seed_valid & (seed_len >= split_len) & (sz <= split_width)
-    pick = torch.argmax(torch.where(qualifies, seed_len, -1), dim=1)[:, None]
+        seed_len = qe_s - qb_s
+        qualifies = seed_valid & (seed_len >= split_len) & (sz <= split_width)
+        pick = torch.argmax(torch.where(qualifies, seed_len, -1),
+                            dim=1)[:, None]
 
-    def at(x):
-        return x.gather(1, pick)[:, 0]
+        def at(x):
+            return x.gather(1, pick)[:, 0]
 
-    r_qb, r_qe, r_il, r_sz = smem_reseed(
-        fm, reads, lens, at(qb_s), at(qe_s), at(sz), at(qualifies),
-        min_seed_len=min_seed_len)
-    qb_all = torch.cat([qb_s, r_qb[:, None]], dim=1)
-    qe_all = torch.cat([qe_s, r_qe[:, None]], dim=1)
-    sz_all = torch.cat([sz, r_sz[:, None]], dim=1)
-    il_all = torch.cat([il, r_il[:, None]], dim=1)
-    valid_all = torch.cat(
-        [seed_valid, ((r_sz > 0) & (r_sz <= max_occ))[:, None]], dim=1)
-    if p3:
-        p3_valid = (torch.arange(p3, device=dev)[None, :]
-                    < seeds["p3_n"][:, None]) \
-            & (seeds["p3_intv_sz"] > 0) & (seeds["p3_intv_sz"] <= max_occ)
-        qb_all = torch.cat([qb_all, seeds["p3_qbeg"]], dim=1)
-        qe_all = torch.cat([qe_all, seeds["p3_qend"]], dim=1)
-        sz_all = torch.cat([sz_all, seeds["p3_intv_sz"]], dim=1)
-        il_all = torch.cat([il_all, seeds["p3_intv_l"]], dim=1)
-        valid_all = torch.cat([valid_all, p3_valid], dim=1)
+        r_qb, r_qe, r_il, r_sz = smem_reseed(
+            fm, reads, lens, at(qb_s), at(qe_s), at(sz), at(qualifies),
+            min_seed_len=min_seed_len)
+        qb_all = torch.cat([qb_s, r_qb[:, None]], dim=1)
+        qe_all = torch.cat([qe_s, r_qe[:, None]], dim=1)
+        sz_all = torch.cat([sz, r_sz[:, None]], dim=1)
+        il_all = torch.cat([il, r_il[:, None]], dim=1)
+        valid_all = torch.cat(
+            [seed_valid, ((r_sz > 0) & (r_sz <= max_occ))[:, None]], dim=1)
+        if p3:
+            p3_valid = (torch.arange(p3, device=dev)[None, :]
+                        < seeds["p3_n"][:, None]) \
+                & (seeds["p3_intv_sz"] > 0) & (seeds["p3_intv_sz"] <= max_occ)
+            qb_all = torch.cat([qb_all, seeds["p3_qbeg"]], dim=1)
+            qe_all = torch.cat([qe_all, seeds["p3_qend"]], dim=1)
+            sz_all = torch.cat([sz_all, seeds["p3_intv_sz"]], dim=1)
+            il_all = torch.cat([il_all, seeds["p3_intv_l"]], dim=1)
+            valid_all = torch.cat([valid_all, p3_valid], dim=1)
 
-    kk = torch.arange(k_occ, device=dev)[None, None, :]
-    k_take = torch.clamp(sz_all, max=k_occ)
-    ranks = il_all[:, :, None].to(I64) + kk
-    occ_valid = valid_all[:, :, None] & (kk < k_take[:, :, None])
-    ranks = torch.where(occ_valid, ranks, -1)
-    pos = sa_lookup(fm, ranks)
+        kk = torch.arange(k_occ, device=dev)[None, None, :]
+        k_take = torch.clamp(sz_all, max=k_occ)
+        ranks = il_all[:, :, None].to(I64) + kk
+        occ_valid = valid_all[:, :, None] & (kk < k_take[:, :, None])
+        ranks = torch.where(occ_valid, ranks, -1)
+    with profiling.span("locate", device=dev):
+        pos = sa_lookup(fm, ranks)
     rep_cov = torch.where(repetitive, qe_s - qb_s, 0).sum(dim=1)
     occ_clip = torch.where(valid_all, torch.clamp(sz_all - k_occ, min=0),
                            0).sum(dim=1)
@@ -234,11 +238,12 @@ def seed_chain_extend(fm: DeviceFMIndex, text, reads, lens,
                          k_occ=k_occ, split_len=split_len,
                          split_width=split_width,
                          max_mem_intv=max_mem_intv)
-    ch = chain_device(s1["qbeg"], s1["qend"], s1["pos"], l_pac,
-                      band=band, max_chain_gap=max_chain_gap,
-                      drop_ratio=drop_ratio, max_chains=max_chains,
-                      min_chain_weight=min_chain_weight,
-                      max_chain_extend=max_chain_extend)
+    with profiling.span("chain", device=dev):
+        ch = chain_device(s1["qbeg"], s1["qend"], s1["pos"], l_pac,
+                          band=band, max_chain_gap=max_chain_gap,
+                          drop_ratio=drop_ratio, max_chains=max_chains,
+                          min_chain_weight=min_chain_weight,
+                          max_chain_extend=max_chain_extend)
     C = max_chains
     keep = ch["keep"]
     aq, alen, ar = ch["anchor_q"], ch["anchor_len"], ch["anchor_r"]
@@ -247,110 +252,117 @@ def seed_chain_extend(fm: DeviceFMIndex, text, reads, lens,
                   pen_clip5=pen_clip5, pen_clip3=pen_clip3, w=w,
                   zdrop=zdrop)
 
-    # DP compaction: a chain whose anchor covers the whole read is
-    # trivial (its extension result is the anchor itself)
-    trivial = keep & (aq == 0) & (alen == lens.to(I32)[:, None])
-    need = (keep & ~trivial).reshape(-1)
-    dest = torch.cumsum(need.to(I64), dim=0) - 1
-    n_dp = int(need.sum())
-    M2 = dp_rows(B)
-    ok = need & (dest < M2)
-    src_b = torch.arange(B, device=dev)[:, None].expand(B, C).reshape(-1)
-    cb = _compact(src_b.to(I32), ok, dest, M2, -1)
-    caq = _compact(aq.reshape(-1), ok, dest, M2, 0)
-    calen = _compact(alen.reshape(-1), ok, dest, M2, 0)
-    car = _compact(ar.reshape(-1), ok, dest, M2, 0)
-    dqb, dqe, drb, dre, dscore = extend_chains(
-        text, reads, lens, cb, caq, calen, car, **ext_kw)
+    with profiling.span("extend", device=dev):
+        # DP compaction: a chain whose anchor covers the whole read is
+        # trivial (its extension result is the anchor itself)
+        trivial = keep & (aq == 0) & (alen == lens.to(I32)[:, None])
+        need = (keep & ~trivial).reshape(-1)
+        dest = torch.cumsum(need.to(I64), dim=0) - 1
+        with profiling.sync("extend.rows"):
+            n_dp = int(need.sum())
+        profiling.count("extend.rows", n_dp)
+        M2 = dp_rows(B)
+        ok = need & (dest < M2)
+        src_b = torch.arange(B, device=dev)[:, None].expand(B, C).reshape(-1)
+        cb = _compact(src_b.to(I32), ok, dest, M2, -1)
+        caq = _compact(aq.reshape(-1), ok, dest, M2, 0)
+        calen = _compact(alen.reshape(-1), ok, dest, M2, 0)
+        car = _compact(ar.reshape(-1), ok, dest, M2, 0)
+        dqb, dqe, drb, dre, dscore = extend_chains(
+            text, reads, lens, cb, caq, calen, car, **ext_kw)
 
-    gidx = dest.clamp(0, M2 - 1)
-    okg = ok.reshape(B, C)
+        gidx = dest.clamp(0, M2 - 1)
+        okg = ok.reshape(B, C)
 
-    def pick(dp, triv_val):
-        v = dp[gidx].reshape(B, C).to(I64)
-        return torch.where(trivial, triv_val.to(I64),
-                           torch.where(okg, v, 0))
+        def pick(dp, triv_val):
+            v = dp[gidx].reshape(B, C).to(I64)
+            return torch.where(trivial, triv_val.to(I64),
+                               torch.where(okg, v, 0))
 
-    qb = pick(dqb, aq)
-    qe = pick(dqe, aq + alen)
-    rb = pick(drb, ar)
-    re = pick(dre, ar + alen)
-    score = pick(dscore, alen * match)
+        qb = pick(dqb, aq)
+        qe = pick(dqe, aq + alen)
+        rb = pick(drb, ar)
+        re = pick(dre, ar + alen)
+        score = pick(dscore, alen * match)
 
-    # ---- mem_chain2aln's per-seed loop: up to ESC_SLOTS extra
-    # extensions per read from located seeds of the best region's
-    # chain that escape its query x ref span
-    bsel = torch.argmax(torch.where(keep, score, -1), dim=1)[:, None]
+        # ---- mem_chain2aln's per-seed loop: up to ESC_SLOTS extra
+        # extensions per read from located seeds of the best region's
+        # chain that escape its query x ref span
+        bsel = torch.argmax(torch.where(keep, score, -1), dim=1)[:, None]
 
-    def col(x):
-        return x.gather(1, bsel)[:, 0]
+        def col(x):
+            return x.gather(1, bsel)[:, 0]
 
-    qb1, qe1 = col(qb), col(qe)
-    rb1, re1 = col(rb), col(re)
-    diag1 = col(ar) - col(aq)
-    has_best = (keep & (score > 0)).any(dim=1)
-    qbs, qes = s1["qbeg"].to(I64), s1["qend"].to(I64)
-    posg = s1["pos"]
-    S1, K = posg.shape[1], posg.shape[2]
-    S1k = S1 * K
-    olen3 = (qes - qbs)[:, :, None]
-    same_half = (posg >= l_pac) == (rb1[:, None, None] >= l_pac)
-    candv = (posg >= 0) & (olen3 > 0) & same_half \
-        & ((posg - qbs[:, :, None] - diag1[:, None, None]).abs() <= w) \
-        & ~((posg < l_pac) & (posg + olen3 > l_pac))
-    contained = (qbs[:, :, None] >= qb1[:, None, None]) \
-        & (qes[:, :, None] <= qe1[:, None, None]) \
-        & (posg >= rb1[:, None, None]) \
-        & (posg + olen3 <= re1[:, None, None])
-    esc = candv & ~contained & has_best[:, None, None]
-    escf = esc.reshape(B, S1k)
-    olenf = olen3.expand(B, S1, K).reshape(B, S1k)
-    qbf = qbs[:, :, None].expand(B, S1, K).reshape(B, S1k)
-    posf = posg.reshape(B, S1k)
-    pk_cur = torch.where(escf, (olenf << 10) | (1023 - qbf), 0)
-    E = ESC_SLOTS
-    cand_has, cand_aq, cand_alen, cand_ar = [], [], [], []
-    for _ in range(E):
-        jx = torch.argmax(pk_cur, dim=1)[:, None]
-        h_e = pk_cur.gather(1, jx)[:, 0] > 0
-        aq_e = qbf.gather(1, jx)[:, 0]
-        cand_has.append(h_e)
-        cand_aq.append(torch.where(h_e, aq_e, 0))
-        cand_alen.append(torch.where(h_e, olenf.gather(1, jx)[:, 0], 0))
-        cand_ar.append(torch.where(h_e, posf.gather(1, jx)[:, 0], 0))
-        pk_cur = torch.where(qbf == aq_e[:, None], 0, pk_cur)
-    left_over = (pk_cur > 0).any(dim=1)
-    hasx = torch.stack(cand_has, dim=1)
-    x_aq = torch.stack(cand_aq, dim=1)
-    x_alen = torch.stack(cand_alen, dim=1)
-    x_ar = torch.stack(cand_ar, dim=1)
-    hf = hasx.reshape(-1)
-    dstx = torch.cumsum(hf.to(I64), dim=0) - 1
-    n_hf = int(hf.sum())
-    src_be = torch.arange(B, device=dev)[:, None].expand(B, E).reshape(-1)
-    # tiered second extension: a small compacted pass (B/16 rows) for
-    # typical batches, a B-row pass for repeat-heavy ones
-    M3a = max(B // 16, 64)
-    M3b = max(B, 64)
-    use_small = n_hf <= M3a
-    M3 = M3a if use_small else M3b
-    okx = hf & (dstx < M3)
-    if bool(okx.any()):
-        res = extend_chains(
-            text, reads, lens, _compact(src_be.to(I32), okx, dstx, M3, -1),
-            _compact(x_aq.reshape(-1).to(I32), okx, dstx, M3, 0),
-            _compact(x_alen.reshape(-1).to(I32), okx, dstx, M3, 0),
-            _compact(x_ar.reshape(-1), okx, dstx, M3, 0), **ext_kw)
-    else:
-        res = (torch.zeros(M3, dtype=I64, device=dev),) * 5
-    gx = dstx.clamp(0, M3 - 1)
-    okg2 = okx.reshape(B, E)
+        qb1, qe1 = col(qb), col(qe)
+        rb1, re1 = col(rb), col(re)
+        diag1 = col(ar) - col(aq)
+        has_best = (keep & (score > 0)).any(dim=1)
+        qbs, qes = s1["qbeg"].to(I64), s1["qend"].to(I64)
+        posg = s1["pos"]
+        S1, K = posg.shape[1], posg.shape[2]
+        S1k = S1 * K
+        olen3 = (qes - qbs)[:, :, None]
+        same_half = (posg >= l_pac) == (rb1[:, None, None] >= l_pac)
+        candv = (posg >= 0) & (olen3 > 0) & same_half \
+            & ((posg - qbs[:, :, None] - diag1[:, None, None]).abs() <= w) \
+            & ~((posg < l_pac) & (posg + olen3 > l_pac))
+        contained = (qbs[:, :, None] >= qb1[:, None, None]) \
+            & (qes[:, :, None] <= qe1[:, None, None]) \
+            & (posg >= rb1[:, None, None]) \
+            & (posg + olen3 <= re1[:, None, None])
+        esc = candv & ~contained & has_best[:, None, None]
+        escf = esc.reshape(B, S1k)
+        olenf = olen3.expand(B, S1, K).reshape(B, S1k)
+        qbf = qbs[:, :, None].expand(B, S1, K).reshape(B, S1k)
+        posf = posg.reshape(B, S1k)
+        pk_cur = torch.where(escf, (olenf << 10) | (1023 - qbf), 0)
+        E = ESC_SLOTS
+        cand_has, cand_aq, cand_alen, cand_ar = [], [], [], []
+        for _ in range(E):
+            jx = torch.argmax(pk_cur, dim=1)[:, None]
+            h_e = pk_cur.gather(1, jx)[:, 0] > 0
+            aq_e = qbf.gather(1, jx)[:, 0]
+            cand_has.append(h_e)
+            cand_aq.append(torch.where(h_e, aq_e, 0))
+            cand_alen.append(torch.where(h_e, olenf.gather(1, jx)[:, 0], 0))
+            cand_ar.append(torch.where(h_e, posf.gather(1, jx)[:, 0], 0))
+            pk_cur = torch.where(qbf == aq_e[:, None], 0, pk_cur)
+        left_over = (pk_cur > 0).any(dim=1)
+        hasx = torch.stack(cand_has, dim=1)
+        x_aq = torch.stack(cand_aq, dim=1)
+        x_alen = torch.stack(cand_alen, dim=1)
+        x_ar = torch.stack(cand_ar, dim=1)
+        hf = hasx.reshape(-1)
+        dstx = torch.cumsum(hf.to(I64), dim=0) - 1
+        with profiling.sync("extend.escape_rows"):
+            n_hf = int(hf.sum())
+        profiling.count("extend.escape_rows", n_hf)
+        src_be = torch.arange(B, device=dev)[:, None].expand(B, E).reshape(-1)
+        # tiered second extension: a small compacted pass (B/16 rows) for
+        # typical batches, a B-row pass for repeat-heavy ones
+        M3a = max(B // 16, 64)
+        M3b = max(B, 64)
+        use_small = n_hf <= M3a
+        M3 = M3a if use_small else M3b
+        okx = hf & (dstx < M3)
+        with profiling.sync("extend.escape_any"):
+            any_x = bool(okx.any())
+        if any_x:
+            res = extend_chains(
+                text, reads, lens, _compact(src_be.to(I32), okx, dstx, M3, -1),
+                _compact(x_aq.reshape(-1).to(I32), okx, dstx, M3, 0),
+                _compact(x_alen.reshape(-1).to(I32), okx, dstx, M3, 0),
+                _compact(x_ar.reshape(-1), okx, dstx, M3, 0), **ext_kw)
+        else:
+            res = (torch.zeros(M3, dtype=I64, device=dev),) * 5
+        gx = dstx.clamp(0, M3 - 1)
+        okg2 = okx.reshape(B, E)
 
-    def back(i):
-        v = res[i].to(I64)[gx].reshape(B, E)
-        return torch.where(okg2, v, 0)
+        def back(i):
+            v = res[i].to(I64)[gx].reshape(B, E)
+            return torch.where(okg2, v, 0)
 
-    esc_over = (hf & ~okx).reshape(B, E).sum(dim=1) + left_over.to(I64)
+        esc_over = (hf & ~okx).reshape(B, E).sum(dim=1) + left_over.to(I64)
     return dict(
         qb=torch.cat([qb, back(0)], dim=1),
         qe=torch.cat([qe, back(1)], dim=1),
@@ -390,7 +402,8 @@ def extend_chains(text, reads, lens, b_idx, aq, alen, ar,
     n_text = text.shape[0]
     kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
               match=match, mismatch=mismatch, zdrop=zdrop)
-    four = torch.tensor(4, dtype=torch.int8, device=dev)
+    with profiling.upload("extend.four"):
+        four = torch.tensor(4, dtype=torch.int8, device=dev)
 
     # ---- left: reversed prefixes ------------------------------------
     lq = torch.where(valid, aq, 0)
@@ -467,10 +480,15 @@ def global_and_traceback(q, ql, t, tl,
     j = tl.to(I64).clone()
     state = torch.zeros(M, dtype=I64, device=dev)
     nm = torch.zeros(M, dtype=I64, device=dev)
+    steps = T
     for s in range(T):
         # the walk is over once every row has reached (0, 0)
-        if s % 8 == 0 and not bool(((i > 0) | (j > 0)).any()):
-            break
+        if s % 8 == 0:
+            with profiling.sync("traceback.live"):
+                walking = bool(((i > 0) | (j > 0)).any())
+            if not walking:
+                steps = s
+                break
         done = (i == 0) & (j == 0)
         code = dirs_flat.gather(
             1, ((i - 1).clamp(0, Lq - 1) * (Lt + 1)
@@ -501,6 +519,7 @@ def global_and_traceback(q, ql, t, tl,
         ops[:, s] = op.to(torch.uint8)
         i = i - (is_m | is_i).to(I64)
         j = j - (is_m | is_d).to(I64)
+    profiling.count("traceback.steps", steps)
     o4 = ops.reshape(M, Tp // 4, 4)
     packed = o4[..., 0] | (o4[..., 1] << 2) | (o4[..., 2] << 4) \
         | (o4[..., 3] << 6)

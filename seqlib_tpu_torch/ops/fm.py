@@ -37,6 +37,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import profiling
 from ..device import resolve_device
 from . import fm_cuda
 
@@ -378,7 +379,9 @@ def sa_lookup(fm: DeviceFMIndex, ranks: torch.Tensor,
     flat = ranks.reshape(-1)
     pos = torch.full_like(flat, -1)
     steps_out = torch.zeros_like(flat)
-    lane = torch.nonzero(flat >= 0)[:, 0]
+    with profiling.sync("locate.lanes"):
+        lane = torch.nonzero(flat >= 0)[:, 0]
+    profiling.count("locate.lanes", lane.numel())
     r = flat[lane]
     steps = torch.zeros_like(r)
     done = (r % intv == 0) | (r == fm.primary)
@@ -386,17 +389,21 @@ def sa_lookup(fm: DeviceFMIndex, ranks: torch.Tensor,
     while True:
         if it >= cap:
             done = torch.ones_like(done)
-        sel = torch.nonzero(done)[:, 0]
+        with profiling.sync("locate.done"):
+            sel = torch.nonzero(done)[:, 0]
         rs, ss = r[sel], steps[sel]
         pos[lane[sel]] = torch.where(rs == fm.primary, 0,
                                      fm.sa[rs // intv]) + ss
         steps_out[lane[sel]] = ss
-        keep = torch.nonzero(~done)[:, 0]
+        with profiling.sync("locate.keep"):
+            keep = torch.nonzero(~done)[:, 0]
         if keep.numel() == 0:
             break
         lane, r, steps = lane[keep], r[keep], steps[keep]
         done = torch.zeros_like(keep, dtype=torch.bool)
         n = min(WALK_CHECK, cap - it)
+        profiling.count("locate.rounds")
+        profiling.count("locate.lane_steps", keep.numel() * n)
         for _ in range(n):
             r = torch.where(done, r, _lf(fm, r))
             steps = steps + (~done).to(torch.int64)
@@ -637,7 +644,9 @@ def _smem_machine(fm: DeviceFMIndex, reads, lens, x0, min_intv, active,
         busy = st["mode"] != M_DONE
         if p3_seeds:
             busy = busy | ~st["pdone"]
-        if not bool(busy.any()):
+        with profiling.sync("smem.busy"):
+            busy_any = bool(busy.any())
+        if not busy_any:
             break
         if count_work:
             work["steps"] = work["steps"] + busy.to(i64)

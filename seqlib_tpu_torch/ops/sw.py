@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
+
 NEG = -0x40000000  # -inf surrogate that survives additions
 NEG16 = -16384     # the TPU rectangle kernels' -inf surrogate
 # the widest target the rectangle kernels take: they keep Lt + 1 columns
@@ -42,7 +44,10 @@ BIT_MIS = 16                        # q[i-1] != t[j-1] (for NM counting)
 def _rows_to_run(qlen: torch.Tensor, Lq: int) -> int:
     """Query rows a row loop must run: a row at or past every lane's
     qlen leaves every output as it is."""
-    return min(Lq, int(qlen.max())) if qlen.numel() else 0
+    if not qlen.numel():
+        return 0
+    with profiling.sync("sw.rows_to_run"):
+        return min(Lq, int(qlen.max()))
 
 
 def _row_scan_E(hnd: torch.Tensor, o_del: int, e_del: int) -> torch.Tensor:
@@ -284,7 +289,8 @@ def global_batch(query, qlen, target, tlen,
     jt = torch.arange(Lt + 1, dtype=i32, device=dev)[None, :]
     tmask = jt <= tlen.to(i32)[:, None]
     trow = target.to(i32)
-    neg = torch.tensor(NEG, dtype=i32, device=dev)
+    with profiling.upload("global_dp.neg"):
+        neg = torch.tensor(NEG, dtype=i32, device=dev)
     qlen = qlen.to(i32)
 
     h = torch.where(jt > 0, -(o_del + e_del * jt), 0).to(i32)
@@ -294,7 +300,9 @@ def global_batch(query, qlen, target, tlen,
     neg_col = torch.full((B, 1), NEG, dtype=i32, device=dev)
     zero_col = torch.zeros((B, 1), dtype=torch.uint8, device=dev)
 
-    for i in range(_rows_to_run(qlen, Lq)):
+    n_rows = _rows_to_run(qlen, Lq)
+    profiling.count("global_dp.dp_rows_run", n_rows)
+    for i in range(n_rows):
         qi = query[:, i].to(i32)[:, None]
         is_match = (trow == qi) & (trow < 4) & (qi < 4)
         sub = torch.where(is_match, match, -mismatch).to(i32)

@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from .. import profiling
 from . import cuda_lib
 from .sw import RECT_MAX_LT, check_rect_shape, extend_batch, extend_rect
 
@@ -130,7 +131,8 @@ def extend_batch_adaptive(query, qlen, target, tlen, h0,
     qlen32 = qlen.to(torch.int32)
     ub = h0.to(torch.int32) + match * qlen32 - gap_pen
     ok = ((r1["score"] > ub) & (r1["gscore"] > ub)) | (qlen32 == 0)
-    bad = torch.nonzero(~ok).flatten()
+    with profiling.sync("k1.adaptive"):
+        bad = torch.nonzero(~ok).flatten()
     n_bad = int(bad.numel())
     B = query.shape[0]
     if n_bad == 0:

@@ -1,21 +1,247 @@
-"""Stage timers and device traces (counterpart of seqlib_tpu/profiling.py).
+"""The port's tracer, its summary and device traces (counterpart of
+seqlib_tpu/profiling.py).
 
-``StageTimer`` accumulates wall time per named stage of a pipeline;
-``device_trace`` records a ``torch.profiler`` trace of a block (CPU
-activity always, CUDA activity where a GPU is present) and writes it as
-a Chrome trace into a directory.
+The tracer is off by default.  ``with tracing(): ...`` turns it on for
+the block; entries nest and are counted, so several readers may each
+hold it on.  While it is off a span site (``span``, ``sync``,
+``upload``) costs one test of a module global and returns a shared
+no-op context, and a counter site (``count``) costs one test.
+
+While it is on:
+
+- a span records its name, its start and end on the profiler's clock
+  (``time.time_ns()``, the Unix epoch, on which torch.profiler stamps its
+  host and device events), the native id of its thread, its parent (the
+  innermost span open on that thread), and a batch id that every span of
+  one stream batch carries on every thread; it also opens a
+  ``torch.profiler.record_function`` range of its name, so a running
+  profiler and ``device_trace`` show it;
+- a span given a CUDA ``device`` records a timing event on that device's
+  current stream at its start and at its end.  ``device_times(batch)``,
+  called once the batch's outputs have been copied to the host, stores
+  the elapsed milliseconds on each such span as ``attrs["stream_ms"]``;
+  no event is read before that, so timing adds no wait for the device;
+- counters add up in one table under one lock.
+
+Spans and counters stay in memory until ``take()`` drains them.
+
+``StageTimer`` sums span durations by name.  ``device_trace`` records a
+``torch.profiler`` trace of a block (CPU activity always, CUDA activity
+where a GPU is present) as a Chrome trace, with the tracer on, and
+writes the spans and counters of the block beside it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
 from collections import defaultdict
+from typing import NamedTuple
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+# open tracing() blocks; every site tests this and nothing else
+_depth = 0
+_NOOP = contextlib.nullcontext()
+_LOCK = threading.Lock()
+_LOCAL = threading.local()
+_BATCHES = itertools.count(1)
+
+
+class Span:
+    """One traced interval (see the module docstring)."""
+
+    __slots__ = ("id", "name", "start_ns", "end_ns", "thread", "parent",
+                 "batch", "attrs", "_device", "_events", "_range")
+
+    def __init__(self, name: str, batch=None, device=None):
+        self.name = name
+        self.batch = batch
+        self.attrs: dict = {}
+        self.start_ns = self.end_ns = 0
+        self._device = device if device is not None \
+            and getattr(device, "type", None) == "cuda" else None
+        self._events = None
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+    def __enter__(self):
+        stack = _stack()
+        up = stack[-1] if stack else None
+        self.id = next(_TRACER.ids)
+        self.parent = up.id if up is not None else None
+        if self.batch is None and up is not None:
+            self.batch = up.batch
+        self.thread = threading.get_native_id()
+        stack.append(self)
+        if self._device is not None:
+            self._events = _record_event(self._device), None
+        self.start_ns = time.time_ns()
+        self._range = record_function(self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(None, None, None)
+        self._range = None
+        self.end_ns = time.time_ns()
+        if self._events is not None:
+            self._events = self._events[0], _record_event(self._device)
+            with _LOCK:
+                _TRACER.pending.append(self)
+        stack = _stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:         # closed on another path than it opened
+            stack.remove(self)
+        _TRACER.spans.append(self)
+        return False
+
+    def as_dict(self) -> dict:
+        return dict(id=self.id, name=self.name, start_ns=self.start_ns,
+                    end_ns=self.end_ns, thread=self.thread,
+                    parent=self.parent, batch=self.batch, **self.attrs)
+
+
+class Records(NamedTuple):
+    """What ``take()`` drains: spans in the order they closed, and the
+    counters by name."""
+    spans: list
+    counters: dict
+
+
+class _Tracer:
+    def __init__(self):
+        self.spans: list[Span] = []
+        self.counters: dict[str, int] = {}
+        self.pending: list[Span] = []    # spans whose events are unread
+        self.ids = itertools.count(1)
+
+
+_TRACER = _Tracer()
+
+
+def _stack() -> list:
+    st = getattr(_LOCAL, "stack", None)
+    if st is None:
+        st = _LOCAL.stack = []
+    return st
+
+
+def _record_event(device):
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+@contextlib.contextmanager
+def tracing():
+    """Turn the tracer on for the block (entries nest and are counted)."""
+    global _depth
+    with _LOCK:
+        _depth += 1
+    try:
+        yield
+    finally:
+        with _LOCK:
+            _depth -= 1
+
+
+def enabled() -> bool:
+    return _depth > 0
+
+
+def span(name: str, batch=None, device=None):
+    """A span ``name`` around the block while tracing is on.  ``batch``
+    sets its batch id (else the parent's); ``device``, a CUDA device,
+    times the block on that device's current stream."""
+    if not _depth:
+        return _NOOP
+    return Span(name, batch, device)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while tracing is on.  ``n`` must be a
+    value the host already holds: never a read of a device tensor."""
+    if not _depth:
+        return
+    with _LOCK:
+        _TRACER.counters[name] = _TRACER.counters.get(name, 0) + int(n)
+
+
+def _site(kind: str, site: str):
+    if not _depth:
+        return _NOOP
+    name = f"{kind}.{site}"
+    count(name)
+    return Span(name)
+
+
+def sync(site: str):
+    """Span and counter ``sync.<site>`` around one read of a device value
+    by the host (``int``/``bool`` of a tensor, ``nonzero``): the host
+    waits there for the device."""
+    return _site("sync", site)
+
+
+def upload(site: str):
+    """Span and counter ``upload.<site>`` around one blocking copy from
+    the host to the device, which also waits for the device's stream."""
+    return _site("upload", site)
+
+
+def new_batch() -> int:
+    """A fresh batch id."""
+    return next(_BATCHES)
+
+
+def device_times(batch) -> None:
+    """Store ``attrs["stream_ms"]`` on the timed spans of ``batch`` whose
+    end event the device has passed (no wait).  Call it where the
+    batch's outputs have been copied to the host."""
+    if not _TRACER.pending:
+        return
+    with _LOCK:
+        mine = [s for s in _TRACER.pending if s.batch == batch]
+        _TRACER.pending = [s for s in _TRACER.pending if s.batch != batch]
+    _read_events(mine)
+
+
+def _read_events(spans) -> None:
+    for s in spans:
+        start, end = s._events
+        if end.query():
+            s.attrs["stream_ms"] = start.elapsed_time(end)
+        s._events = None
+
+
+def take() -> Records:
+    """Drain the spans and counters recorded so far.  Timed spans whose
+    events are still unread are read now where the device has passed
+    them."""
+    with _LOCK:
+        pending, _TRACER.pending = _TRACER.pending, []
+        spans, _TRACER.spans = _TRACER.spans, []
+        counters, _TRACER.counters = _TRACER.counters, {}
+    _read_events(pending)
+    return Records(spans, counters)
 
 
 class StageTimer:
-    """Accumulates wall time per named stage."""
+    """Host wall time and counts per named stage: the tracer's summary.
+
+    ``stage(name)`` times a block on the host clock (and is a span of the
+    tracer while it is on); ``add(spans)`` adds the durations of spans
+    that ``take()`` returned.  Around device work that nothing waits for,
+    a host duration is the time to enqueue the work, not the device's
+    time: a span's ``attrs["stream_ms"]`` is that."""
 
     def __init__(self):
         self.totals: dict[str, float] = defaultdict(float)
@@ -25,10 +251,17 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
+
+    def add(self, spans) -> "StageTimer":
+        for s in spans:
+            self.totals[s.name] += (s.end_ns - s.start_ns) / 1e9
+            self.counts[s.name] += 1
+        return self
 
     def report(self) -> str:
         lines = []
@@ -45,15 +278,21 @@ class StageTimer:
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
-    """Record a torch.profiler trace of the enclosed block into
-    ``logdir``/trace_<pid>_<ns>.json (Chrome trace format)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Record a torch.profiler trace of the enclosed block, with the
+    tracer on, into ``logdir``/trace_<pid>_<ns>.json (Chrome trace
+    format), and the block's spans and counters, where it recorded any,
+    into ``logdir``/spans_<pid>_<ns>.json.  The spans are drained
+    (``take()``)."""
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with tracing(), profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(
-        logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    stamp = f"{os.getpid()}_{time.time_ns()}"
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{stamp}.json"))
+    rec = take()
+    if rec.spans or rec.counters:
+        with open(os.path.join(logdir, f"spans_{stamp}.json"), "w") as fh:
+            json.dump(dict(spans=[s.as_dict() for s in rec.spans],
+                           counters=rec.counters), fh)
