@@ -29,7 +29,8 @@ last line is printed):
    call with the Python wrapper, back to back (``event_ms``), both with
    CUDA events;
 6. main path: 8 x 4096 reads through ``align_stream_bam`` on the card
-   with the launch counters reset just before and read just after;
+   with the launch counters reset just before and read just after (no
+   walk launch: the index has its full SA);
    the first batch's SAM must equal the port's CPU run byte for byte,
    and at least 98% of reads must place their primary record at the
    simulated position;
@@ -104,7 +105,15 @@ last line is printed):
    proper; fml's contig == the assembly-local phase's; the index,
    write and load times, reads/s loaded against constructed in turns,
    the locate's ms a batch and longest walk, the SA's bytes on the card
-   and peak memory;
+   and peak memory.  Then the LF-walk kernel (``csrc/sa_walk.cu``) on
+   the loaded index: one 65,536-read batch (the benchmark's) aligned
+   inside the kernel recorder, every walk call's positions, and the
+   kernel's positions and steps on its ranks, held against the plain
+   loop on the card (tolerance 0), and the batch's call timed (device
+   ms a launch, ms with the wrapper, the plain loop's ms) beside its
+   bound: the largest of the HBM stream, the L2 traffic at L2's read
+   bandwidth measured on the index's rows, and the longest walk x the
+   dependent-load latency;
 15. records: the bam phase's sorted BAM (the main reads aligned on the
    card) through ``BamWriter(CRAM)`` with the reference attached (RR=1)
    and without, ``build_index`` (.crai), ``BamReader`` over each,
@@ -188,12 +197,12 @@ last line is printed):
    per-call wrapper time, as for K1 and K2, beside the earlier layouts'
    times (PERF.md), and each variant's longest lane alone: rows,
    pipeline steps, ns a step), whose launches they report;
-20. one JSON line of all five kernels' numbers, each with its launches
-   on each path it has (``by_path``: K1 and K2 main, overflow, long,
-   paired, bam, cli, records, wide, sharded, mesh, multihost; K3 mesh;
-   K3-K5 bench; all five assembly, where no TPU-kernel counterpart
-   runs), K1's and K2's long and wide paths with their mean device ms
-   and bound.
+20. one JSON line of all six kernels' numbers, each with its launches
+   on each path it has (``by_path``: K1, K2 and the walk main,
+   overflow, long, paired, bam, cli, records, wide, sharded, mesh,
+   multihost, the walk 0 on every path over a full SA; K3 mesh; K3-K5
+   bench; all six assembly, where no TPU-kernel counterpart runs), K1's
+   and K2's long and wide paths with their mean device ms and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -224,8 +233,8 @@ from seqlib_tpu_torch.core import (FSECONDARY, FSUPPLEMENTARY, FUNMAP,
                                    GenomicRegion, sort_by_position)
 from seqlib_tpu_torch.core.seq import revcomp
 from seqlib_tpu_torch.core.unaligned import UnalignedSequence
-from seqlib_tpu_torch.bench_sw import (band_cells_needed, cuda_ms,
-                                       device_ms, k1_edge_inputs,
+from seqlib_tpu_torch.bench_sw import (HBM_BYTES_PER_S, band_cells_needed,
+                                       cuda_ms, device_ms, k1_edge_inputs,
                                        k1_long_inputs, max_abs_diff, roof_ms,
                                        smi_name_power)
 from seqlib_tpu_torch.index import FMIndex
@@ -237,7 +246,7 @@ from seqlib_tpu_torch.io.fast_bam import FastBamReader, fetch_region
 from seqlib_tpu_torch.io.sam import format_sam_line
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, kmer, sw_cuda
 from seqlib_tpu_torch.ops import fm as fm_ops
-from seqlib_tpu_torch.ops.fm import DeviceFMIndex, _smem_machine
+from seqlib_tpu_torch.ops.fm import DeviceFMIndex, _sa_walk, _smem_machine
 from seqlib_tpu_torch.ops.sw import extend_batch
 from seqlib_tpu_torch.sim import (edge_read_batch, make_genome,
                                   make_repeat_genome, make_repeat_reads,
@@ -264,6 +273,8 @@ BAM_REGIONS = 200
 CLI_ALIGN = 4096                   # cli phase: reads through `seqtools align`
 CLI_PAIRS = 1024                   # pairs through `seqtools align -2`
 CLI_CHECK = 512                    # reads held GPU against CPU, loaded index
+WALK_READS = 65_536                # walk: one batch of the benchmark's size
+WALK_REPS = 20                     # on the loaded index; its timed launches
 RECORDS_REGIONS = 20               # records: the bam phase's first regions
 COV_WINDOW = 200_000               # on the CRAM (each decodes its containers)
 PLOT_WINDOW = 1_000
@@ -306,6 +317,9 @@ K2_OPS_PER_EXT = 32
 P2E_K1_MS = {(3072, 32): [0.3635, 0.4437], (65, 100): [0.6171],
              (80, 100): [0.7021], (256, 32): [0.3643, 0.1231]}
 P2E_K2_MS = {(4096, 16): [1.6698], (4096, 4): [0.5407]}
+# the kernels whose launches each aligner path reports: K1 and K2 on every
+# index, the walk on a loaded one (a sampled SA) only
+PATH_KERNELS = cuda_lib.MAIN_PATH + ("sa_walk",)
 
 
 def log(*a):
@@ -481,17 +495,18 @@ def bound_fields(bounds) -> dict:
 # ---------------------------------------------------------------------------
 
 class Recorder:
-    """Wraps the two kernel launchers to keep each call's inputs and
-    what the kernel returned."""
+    """Wraps the three kernel launchers of the aligner (K1, K2 and the
+    LF walk) to keep each call's inputs and what the kernel returned."""
 
     def __init__(self):
         self.k1: list = []
         self.k2: list = []
+        self.walk: list = []
         self._orig = (sw_cuda.extend_batch_banded_cuda,
-                      fm_cuda.smem_machine_cuda)
+                      fm_cuda.smem_machine_cuda, fm_cuda.sa_walk_cuda)
 
     def __enter__(self):
-        o1, o2 = self._orig
+        o1, o2, o3 = self._orig
 
         def k1(*a, **kw):
             args = tuple(x.clone() for x in a[:5])
@@ -507,13 +522,19 @@ class Recorder:
                             {k: v.clone() for k, v in out.items()}))
             return out
 
+        def walk(fm, ranks, return_steps=False):
+            pos, steps = o3(fm, ranks, return_steps)
+            self.walk.append((fm, ranks.clone(), pos.clone()))
+            return pos, steps
+
         sw_cuda.extend_batch_banded_cuda = k1
         fm_cuda.smem_machine_cuda = k2
+        fm_cuda.sa_walk_cuda = walk
         return self
 
     def __exit__(self, *exc):
-        sw_cuda.extend_batch_banded_cuda, fm_cuda.smem_machine_cuda = \
-            self._orig
+        (sw_cuda.extend_batch_banded_cuda, fm_cuda.smem_machine_cuda,
+         fm_cuda.sa_walk_cuda) = self._orig
 
 
 def k1_call_kwargs(rec):
@@ -573,6 +594,18 @@ def dependent_load_ns(fm, dev, gen) -> float:
     ms1 = cuda_ms(lambda: fm_cuda.load_chase(table, n1, out), 3)
     ms2 = cuda_ms(lambda: fm_cuda.load_chase(table, n2, out), 3)
     return 1e6 * (ms2 - ms1) / (n2 - n1)
+
+
+def l2_bytes_per_s(table: torch.Tensor) -> float:
+    """L2's read bandwidth over ``table`` (the index's block rows: it
+    stays in L2): ``fm_cuda.l2_read`` over the whole card, the slope of
+    two repeat counts (which removes the launch cost)."""
+    out = torch.zeros(1, dtype=torch.int32, device=table.device)
+    n1, n2 = 10, 110
+    ms1 = device_ms(lambda: fm_cuda.l2_read(table, n1, out), 5)
+    ms2 = device_ms(lambda: fm_cuda.l2_read(table, n2, out), 5)
+    return (n2 - n1) * table.numel() * table.element_size() \
+        / (1e-3 * (ms2 - ms1))
 
 
 # ---------------------------------------------------------------------------
@@ -1436,6 +1469,89 @@ class LocateTimer:
         self._mod.sa_lookup = self._orig
 
 
+def walk_bound_ms(entries: int, lanes: int, lane_steps: int, longest: int,
+                  l2_bps: float, load_ns: float) -> tuple[float, str]:
+    """Bound of one walk launch without steps, the largest of three:
+    HBM, the ranks read and the positions written once (8 bytes each an
+    entry) over 3.35 TB/s; L2, two 32-byte sectors a step (a block row
+    spans two), one a lane's SA sample and the HBM stream (which passes
+    through L2) over L2's measured read bandwidth; latency, the longest
+    walk's steps x one dependent load."""
+    hbm = 16 * entries
+    times = {"HBM bytes": hbm / HBM_BYTES_PER_S,
+             "L2 bytes": (64 * lane_steps + 32 * lanes + hbm) / l2_bps,
+             "latency": 1e-9 * longest * load_ns}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def walk_phase(aln, genome: str, card: str, load_ns: float) -> dict:
+    """The LF-walk kernel on the loaded index, on what the locate of one
+    WALK_READS-read batch (the benchmark's batch) hands it: every
+    recorded call's positions and the kernel's positions and steps
+    again against the plain loop ``_sa_walk`` on the same ranks, on the
+    card (tolerance 0); then the batch's call timed (device ms a launch
+    over WALK_REPS, ms a call with the wrapper, the plain loop's
+    synchronised ms) beside ``walk_bound_ms``, with L2's bandwidth
+    measured on the index's rows and ``load_ns`` from K2's chase.
+    Returns the kernel's fields of the ``kernels`` line."""
+    t_phase = time.time()
+    batch = simulate_reads(genome, WALK_READS, seed=13, length=READ_BP)
+    with Recorder() as rec:
+        aln.align_batch_bam([s for _, s in batch], [n for n, _ in batch])
+        torch.cuda.synchronize()
+    if not rec.walk:
+        raise AssertionError("walk: no walk call on the loaded index")
+    err = 0
+    for fm, ranks, got in rec.walk:
+        pos, steps = fm_cuda.sa_walk_cuda(fm, ranks, return_steps=True)
+        want, wsteps = _sa_walk(fm, ranks, return_steps=True)
+        err = max(err, int((got - want).abs().max()),
+                  int((pos - want).abs().max()),
+                  int((steps - wsteps).abs().max()))
+    if err:
+        raise AssertionError(f"walk: the kernel differs from the plain "
+                             f"loop on the batch's ranks ({err})")
+    fm, ranks, _ = max(rec.walk, key=lambda w: w[1].numel())
+    _, steps = fm_cuda.sa_walk_cuda(fm, ranks, return_steps=True)
+    valid = ranks >= 0
+    lanes, lane_steps = int(valid.sum()), int(steps.sum())
+    longest = int(steps.max())
+    capped = int((steps == 64 * fm.sa_intv).sum())
+    ms = device_ms(lambda: fm_cuda.sa_walk_cuda(fm, ranks), WALK_REPS)
+    ev = cuda_ms(lambda: fm_cuda.sa_walk_cuda(fm, ranks), WALK_REPS)
+    plain = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _sa_walk(fm, ranks)
+        torch.cuda.synchronize()
+        plain.append(1e3 * (time.time() - t0))
+    l2_bps = l2_bytes_per_s(fm.blocks)
+    bound, by = walk_bound_ms(ranks.numel(), lanes, lane_steps, longest,
+                              l2_bps, load_ns)
+    log(f"walk: {len(rec.walk)} call(s) of one {WALK_READS}-read batch on "
+        f"the loaded index (sa_intv {fm.sa_intv}): positions and steps == "
+        f"the plain loop's (tolerance 0); {ranks.numel()} entries, {lanes} "
+        f"lanes, {lane_steps} LF steps, the longest {longest}, {capped} "
+        f"capped [{card}]")
+    log(f"walk: {ms:.4f} ms device time a launch ({ev:.3f} ms/call with "
+        f"the wrapper; plain loop {', '.join(f'{p:.0f}' for p in plain)} ms "
+        f"on the card); bound {bound:.4f} ms ({by}: HBM "
+        f"{1e3 * 16 * ranks.numel() / HBM_BYTES_PER_S:.4f} ms, L2 at "
+        f"{l2_bps / 1e12:.2f} TB/s measured "
+        f"{1e3 * (64 * lane_steps + 32 * lanes + 16 * ranks.numel()) / l2_bps:.4f}"
+        f" ms, latency {longest} x {load_ns:.1f} ns = "
+        f"{1e-6 * longest * load_ns:.4f} ms), {ms / bound:.2f}x; phase "
+        f"{time.time() - t_phase:.1f} s [{card}]")
+    return dict(
+        name="sa_walk", route="cuda", source="seqlib_tpu_torch/csrc/sa_walk.cu",
+        replaces="none (XLA walk: seqlib_tpu/ops/fm.py::sa_lookup)",
+        max_abs_err=err, ms=ms, event_ms=ev, plain_ms=float(np.mean(plain)),
+        bound_ms=bound, bound_by=by, library_ms=None, l2_bytes_per_s=l2_bps,
+        lanes=lanes, lane_steps=lane_steps, longest=longest, capped=capped)
+
+
 def write_fasta(path: str, contigs, width: int = 80) -> None:
     with open(path, "w") as fh:
         for name, seq in contigs:
@@ -1466,7 +1582,7 @@ def stream_sam(aln, stream) -> tuple[list, float, float]:
 
 
 def cli_phase(genome: str, reads, pairs, asm_contigs, bam_out: dict,
-              card: str, workdir: str) -> dict:
+              card: str, workdir: str, load_ns: float) -> tuple[dict, dict]:
     """What a user of the command line runs, on the bam phase's
     three-contig reference written to ref.fa, counters reset just before
     and read just after: ``seqtools index ref.fa`` (bwa's five files) ->
@@ -1481,7 +1597,9 @@ def cli_phase(genome: str, reads, pairs, asm_contigs, bam_out: dict,
     ``mark_supplementary`` (``align`` restores no qualities); >= 98% of
     the pairs proper; fml's contig is the assembly-local phase's.  And
     loaded against constructed: reads/s in turns, the locate's ms a
-    batch and longest walk, the SA tensor's bytes, peak memory."""
+    batch and longest walk, the SA tensor's bytes, peak memory.  Last,
+    ``walk_phase`` on the loaded index.  Returns the path's launches and
+    the walk kernel's fields."""
     from seqlib_tpu_torch import cli
     from seqlib_tpu_torch.align.pairing import mark_supplementary
     t_phase = time.time()
@@ -1537,7 +1655,7 @@ def cli_phase(genome: str, reads, pairs, asm_contigs, bam_out: dict,
     wall = time.time() - t0
     launches = dict(cuda_lib.LAUNCHES)
     # ------------------------------------------------------------------------
-    for k in cuda_lib.MAIN_PATH:
+    for k in PATH_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"cli: kernel {k} not launched")
     log(f"cli: the path in {wall:.2f} s: seqtools index {t_index:.2f} s "
@@ -1652,10 +1770,10 @@ def cli_phase(genome: str, reads, pairs, asm_contigs, bam_out: dict,
                              "assembly-local phase's")
     log(f"cli: seqtools fml -f == the assembly-local phase's contig "
         f"({len(fml[0])} bp)")
-    log(f"cli: K1 {launches['sw_extend']} and K2 {launches['smem_machine']}"
-        f" launches on the path; phase {time.time() - t_phase:.1f} s "
-        f"[{card}]")
-    return launches
+    log(f"cli: K1 {launches['sw_extend']}, K2 {launches['smem_machine']} "
+        f"and walk {launches['sa_walk']} launches on the path; phase "
+        f"{time.time() - t_phase:.1f} s [{card}]")
+    return launches, walk_phase(aln, genome, card, load_ns)
 
 
 # ---------------------------------------------------------------------------
@@ -2592,9 +2710,9 @@ def wide_phase(genome: str, idx, reads, outs, narrow: dict, dev,
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"wide phase: {time.time() - t_phase:.1f} s [{card}]")
-    return {k: dict(wide=path_fields(wide_launches[k], w_times[k]),
+    return {k: dict(wide=path_fields(wide_launches[k], w_times.get(k, ())),
                     sharded=path_fields(sh_launches[k]))
-            for k in cuda_lib.MAIN_PATH}
+            for k in PATH_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -3064,6 +3182,8 @@ def main() -> int:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main "
                                  "path")
+    if launches["sa_walk"]:
+        raise AssertionError("the walk kernel ran on a full SA")
     if n_reads != len(reads):
         raise AssertionError("the stream lost reads")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.0f}"
@@ -3101,6 +3221,7 @@ def main() -> int:
         log(f"  {k:34s} {v:8.1f} ms x{st.calls[k]}")
     profile_batch(aln, b1, card)
 
+    kernels["sa_walk"] = {}      # its fields come from the cli phase
     for k, v in kernels.items():
         v["launches"] = int(launches[k])
 
@@ -3119,11 +3240,11 @@ def main() -> int:
         t0 = time.time()
         long_edge_phase(dev, rec.k2[0][0], genome, card)
         log(f"long edge phase: {time.time() - t0:.1f} s")
-        for k in cuda_lib.MAIN_PATH:
+        for k in PATH_KERNELS:
             kernels[k]["by_path"] = dict(
                 main=path_fields(kernels[k]["launches"]),
                 overflow=path_fields(over_launches[k]),
-                long=path_fields(long_launches[k], long_times[k]),
+                long=path_fields(long_launches[k], long_times.get(k, ())),
                 paired=path_fields(pair_launches[k]),
                 bam=path_fields(bam_launches[k]))
         log(f"long-read, paired, bam and long edge phases: "
@@ -3135,15 +3256,16 @@ def main() -> int:
         asm_launches, asm_contigs = assembly_local_phase(genome, card)
         log(f"assembly-local phase: {time.time() - t0:.1f} s")
         t2 = time.time()
-        cli_launches = cli_phase(genome, reads, pairs, asm_contigs, bam_out,
-                                 card, workdir)
+        cli_launches, walk = cli_phase(genome, reads, pairs, asm_contigs,
+                                       bam_out, card, workdir, load_ns)
         del bam_out
-        for k in cuda_lib.MAIN_PATH:
+        kernels["sa_walk"].update(walk)
+        for k in PATH_KERNELS:
             kernels[k]["by_path"]["cli"] = path_fields(cli_launches[k])
         log(f"cli phase: {time.time() - t2:.1f} s [{card}]")
         t2 = time.time()
         records_launches = records_phase(card, workdir)
-        for k in cuda_lib.MAIN_PATH:
+        for k in PATH_KERNELS:
             kernels[k]["by_path"]["records"] = path_fields(
                 records_launches[k])
         log(f"records phase: {time.time() - t2:.1f} s [{card}]")
@@ -3161,14 +3283,14 @@ def main() -> int:
     wide_paths = wide_phase(genome, idx, reads, outs, narrow, dev, card)
     main_payloads = [p for _, p, _ in outs[:MESH_READS // BATCH]]
     del outs
-    for k in cuda_lib.MAIN_PATH:
+    for k in PATH_KERNELS:
         kernels[k]["by_path"].update(wide_paths[k])
 
     # ---- parallel: meshes, the data-parallel steps, two ranks, dry run -----
     mesh_launches, rank_launches = parallel_phase(genome, idx, reads,
                                                   main_payloads, narrow, card)
     del main_payloads
-    for k in cuda_lib.MAIN_PATH:
+    for k in PATH_KERNELS:
         kernels[k]["by_path"].update(
             mesh=path_fields(mesh_launches[k]),
             multihost=path_fields(rank_launches[k]))

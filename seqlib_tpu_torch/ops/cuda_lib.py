@@ -9,8 +9,9 @@ PyTorch's current stream, and every C entry returns
 ``cudaGetLastError()``.  ``build_all`` starts one nvcc per source at
 once.  ``LAUNCHES`` counts launches per kernel (one counter per C
 entry point that launches one); it is the evidence that a run went
-through a kernel.  ``MAIN_PATH`` names the kernels the aligner runs;
-the rectangle kernels K3-K5 run only on the extension bench path
+through a kernel.  ``MAIN_PATH`` names the kernels the aligner runs on
+every index; ``sa_walk`` runs on a loaded one (a sampled SA) only, and
+the rectangle kernels K3-K5 only on the extension bench path
 (``bench_sw``).  Launches come from several host threads on a mesh
 (one per device), so every counter of the kernels' modules moves under
 one lock (``bump``, ``reset_launches``), and a library is loaded under
@@ -48,6 +49,13 @@ SIGNATURES = {
         "smem_machine_max_stack": [],
         "smem_load_chase": [_VP, _CI, _CI, _VP, _VP],
     },
+    "sa_walk": {
+        "sa_walk": [_VP] * 3 + [_CL, _CI, _CL, _CI, ctypes.POINTER(_CI)]
+        + [_VP] * 4,
+        "sa_walk_wide": [_VP] * 3 + [_CL] * 4 + [ctypes.POINTER(_CL)]
+        + [_VP] * 4,
+        "sa_l2_read": [_VP, _CL, _CI, _CI, _VP, _VP],
+    },
     "sw_rect": {
         "sw_extend_rect": [_VP] * 6 + [_CI] * 10 + [_VP],
         "sw_extend_rect_blocked": [_VP] * 6 + [_CI] * 10 + [_VP],
@@ -65,7 +73,8 @@ SIGNATURES = {
 LIBRARIES = tuple(SIGNATURES)
 MAIN_PATH = ("sw_extend", "smem_machine")
 LAUNCHES = {name: 0 for name in MAIN_PATH + (
-    "sw_extend_rect", "sw_extend_rect_blocked", "sw_extend_rect_interleaved")}
+    "sa_walk", "sw_extend_rect", "sw_extend_rect_blocked",
+    "sw_extend_rect_interleaved")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()

@@ -18,7 +18,9 @@ package's hi/lo int32 pairs exist only because of the TPU.
 ``DeviceFMIndex.sa`` is the full suffix array of a constructed index
 (``sa_intv`` 1: a locate is one gather) or the rank-sampled one of an
 index loaded from bwa's files (``sa_intv`` 32: a locate walks LF to a
-sample, in plain PyTorch, as the JAX package does in XLA).
+sample, as the JAX package does in XLA: one launch of the walk kernel
+``csrc/sa_walk.cu`` on CUDA tensors, the plain loop ``_sa_walk`` on CPU
+tensors).
 
 ``_smem_machine`` is the plain version of kernel K2
 (``csrc/smem_machine.cu``); ``smem_collect`` and ``smem_reseed`` reach
@@ -364,17 +366,35 @@ def sa_lookup(fm: DeviceFMIndex, ranks: torch.Tensor,
     On a sampled SA (samples by rank: ``isa % sa_intv == 0``) each valid
     rank walks LF until it is a multiple of ``sa_intv`` or is
     ``primary`` (SA 0), and its position is the sample plus the steps
-    taken.  Only the valid ranks walk, compacted, and lanes that are
-    done leave the walk at each test.  As in the JAX package the walk
-    stops after ``64 * sa_intv`` steps; a lane still walking then gets
-    ``sa[r // sa_intv] + steps``.  With ``return_steps`` also returns
-    each rank's steps (0 on the full SA)."""
+    taken.  As in the JAX package the walk stops after ``64 * sa_intv``
+    steps; a lane still walking then gets ``sa[r // sa_intv] + steps``.
+    The walk is one kernel launch on CUDA tensors
+    (``fm_cuda.sa_walk_cuda``), the plain loop ``_sa_walk`` on CPU
+    tensors.  With ``return_steps`` also returns each rank's steps (0 on
+    the full SA)."""
     ranks = ranks.to(torch.int64)
-    r0 = torch.clamp(ranks, min=0)
     if fm.sa_intv == 1:
+        r0 = torch.clamp(ranks, min=0)
         pos = torch.where(r0 == fm.primary, 0, fm.sa[r0])
         pos = torch.where(ranks < 0, -1, pos)
         return (pos, torch.zeros_like(pos)) if return_steps else pos
+    walk = fm_cuda.sa_walk_cuda if ranks.is_cuda else _sa_walk
+    pos, steps = walk(fm, ranks, return_steps)
+    return (pos, steps) if return_steps else pos
+
+
+def _sa_walk(fm: DeviceFMIndex, ranks: torch.Tensor,
+             return_steps: bool = False):
+    """The plain version of the walk kernel (``csrc/sa_walk.cu``):
+    (positions, steps or None) for int64 ranks on a sampled SA.  Only
+    the valid ranks walk, compacted, in rounds of ``WALK_CHECK`` steps;
+    lanes that are done leave the walk at each round's test (two reads
+    of the device, ``sync.locate.done`` and ``sync.locate.keep``).
+    While the tracer is on it counts the kernel's totals
+    (``locate.lanes``, ``locate.lane_steps``: exact LF steps,
+    ``locate.capped``: lanes that walked the cap's steps) and its own
+    ``locate.rounds``; ``sa_lookup`` runs it on CPU tensors only, where
+    reading those totals costs no wait."""
     intv, cap = fm.sa_intv, 64 * fm.sa_intv
     flat = ranks.reshape(-1)
     pos = torch.full_like(flat, -1)
@@ -403,14 +423,19 @@ def sa_lookup(fm: DeviceFMIndex, ranks: torch.Tensor,
         done = torch.zeros_like(keep, dtype=torch.bool)
         n = min(WALK_CHECK, cap - it)
         profiling.count("locate.rounds")
-        profiling.count("locate.lane_steps", keep.numel() * n)
         for _ in range(n):
             r = torch.where(done, r, _lf(fm, r))
             steps = steps + (~done).to(torch.int64)
             done = done | (r % intv == 0) | (r == fm.primary)
         it += n
-    pos, steps_out = pos.reshape(ranks.shape), steps_out.reshape(ranks.shape)
-    return (pos, steps_out) if return_steps else pos
+    if profiling.enabled():
+        # values the CPU holds (``tolist`` dispatches no scalar read)
+        total, capped = torch.stack(
+            [steps_out.sum(), (steps_out == cap).sum()]).tolist()
+        profiling.count("locate.lane_steps", total)
+        profiling.count("locate.capped", capped)
+    pos = pos.reshape(ranks.shape)
+    return pos, steps_out.reshape(ranks.shape) if return_steps else None
 
 
 # ---------------------------------------------------------------------------

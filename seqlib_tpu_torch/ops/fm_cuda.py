@@ -1,5 +1,5 @@
-"""Kernel K2: the SMEM seed machine as one CUDA launch (counterpart of
-seqlib_tpu/ops/fm_pallas.py).
+"""Kernel K2, the SMEM seed machine as one CUDA launch (counterpart of
+seqlib_tpu/ops/fm_pallas.py), and the LF walk of a sampled SA as another.
 
 ``smem_machine_cuda`` launches ``csrc/smem_machine.cu``; it is what
 ``ops.fm.smem_machine`` runs on CUDA tensors (the plain version there,
@@ -7,7 +7,14 @@ seqlib_tpu/ops/fm_pallas.py).
 blocks, 48-byte rows) takes the kernel's int32 instantiation, a wide one
 (int64 blocks, 64-byte rows) its int64 instantiation, which returns
 int64 interval starts; both count as launches of K2.  ``load_chase`` is
-the latency probe behind K2's dependent-load bound.
+the latency probe behind K2's dependent-load bound (and the walk's),
+``l2_read`` the bandwidth probe behind the walk's L2 bound.
+
+``sa_walk_cuda`` launches ``csrc/sa_walk.cu``; it is what
+``ops.fm.sa_lookup`` runs on CUDA tensors of a sampled SA (the plain
+loop, ``ops.fm._sa_walk``, runs on CPU tensors), with the same two
+instantiations by index width.  It replaces no TPU kernel: the JAX
+package walks in XLA.
 """
 
 from __future__ import annotations
@@ -16,9 +23,24 @@ import ctypes
 
 import torch
 
+from .. import profiling
 from . import cuda_lib
 
 KERNEL = "smem_machine"
+WALK = "sa_walk"
+# the tracer's totals of one walk, in the kernel's counters order
+WALK_COUNTERS = ("locate.lanes", "locate.lane_steps", "locate.capped")
+
+
+def _blocks_layout(name: str, blocks: torch.Tensor) -> bool:
+    """Raise unless ``blocks`` is a contiguous int32 [rows, 12] or int64
+    [rows, 8] table; returns whether it is the wide one."""
+    width = {torch.int32: 12, torch.int64: 8}.get(blocks.dtype)
+    if not blocks.is_contiguous() or blocks.dim() != 2 \
+            or blocks.shape[1] != width:
+        raise ValueError(f"{name}: blocks must be contiguous int32 "
+                         "[rows, 12] or int64 [rows, 8]")
+    return blocks.dtype == torch.int64
 
 
 def smem_machine_cuda(fm, reads, lens, x0, min_intv, active,
@@ -36,12 +58,7 @@ def smem_machine_cuda(fm, reads, lens, x0, min_intv, active,
                          f"1..{lib.smem_machine_max_stack()}")
     if L < 1 or max_seeds < 1:
         raise ValueError("smem_machine_cuda: empty read or seed width")
-    width = {torch.int32: 12, torch.int64: 8}.get(fm.blocks.dtype)
-    if not fm.blocks.is_contiguous() or fm.blocks.dim() != 2 \
-            or fm.blocks.shape[1] != width:
-        raise ValueError("smem_machine_cuda: blocks must be contiguous "
-                         "int32 [rows, 12] or int64 [rows, 8]")
-    wide = fm.blocks.dtype == torch.int64
+    wide = _blocks_layout("smem_machine_cuda", fm.blocks)
     i32 = torch.int32
     rk = torch.int64 if wide else i32
 
@@ -92,6 +109,74 @@ def smem_machine_cuda(fm, reads, lens, x0, min_intv, active,
         out.update(p3_qbeg=pqb, p3_qend=pqe, p3_intv_l=pil,
                    p3_intv_sz=pisz, p3_n=pn)
     return out
+
+
+def sa_walk_cuda(fm, ranks: torch.Tensor, return_steps: bool = False):
+    """The LF walk of ``ops.fm._sa_walk`` in one launch on CUDA tensors
+    (raises on anything else): (positions, steps or None), int64, shaped
+    as ``ranks``.  While the tracer is on, counts the launch in
+    ``locate.walk_launches`` and hands the kernel's device totals of
+    ``WALK_COUNTERS`` to ``profiling.count_device``: no host read."""
+    dev = ranks.device
+    guard = cuda_lib.on_device("sa_walk_cuda", dev, fm.blocks, fm.sa)
+    wide = _blocks_layout("sa_walk_cuda", fm.blocks)
+    # the interval is a rank of the index's width; the cap, 64 of them,
+    # an int64
+    if not 1 <= fm.sa_intv < (1 << 57 if wide else 1 << 31) \
+            or fm.sa.dtype != torch.int64 or not fm.sa.is_contiguous():
+        raise ValueError("sa_walk_cuda: a contiguous int64 SA sampled at "
+                         "an interval its rank type holds")
+    flat = ranks.reshape(-1).to(torch.int64).contiguous()
+    pos = torch.empty_like(flat)
+    steps = torch.empty_like(flat) if return_steps else None
+    n = flat.numel()
+    if n:
+        traced = profiling.enabled()
+        totals = torch.zeros(len(WALK_COUNTERS), dtype=torch.int64,
+                             device=dev) if traced else None
+        ct = ctypes.c_longlong if wide else ctypes.c_int
+        vp = ctypes.c_void_p
+        lib = cuda_lib.load(WALK)
+        entry = lib.sa_walk_wide if wide else lib.sa_walk
+        with guard:
+            rc = entry(
+                vp(fm.blocks.data_ptr()), vp(fm.sa.data_ptr()),
+                vp(flat.data_ptr()), ctypes.c_longlong(n),
+                ct(fm.sa_intv), ctypes.c_longlong(64 * fm.sa_intv),
+                ct(fm.primary), (ct * 4)(*fm.L2_host[:4]),
+                vp(pos.data_ptr()),
+                vp(steps.data_ptr() if steps is not None else None),
+                vp(totals.data_ptr() if traced else None),
+                cuda_lib.stream_ptr(dev))
+            cuda_lib.check(rc, WALK)
+            cuda_lib.bump(cuda_lib.LAUNCHES, WALK)
+            if traced:
+                profiling.count("locate.walk_launches")
+                profiling.count_device(WALK_COUNTERS, totals)
+    pos = pos.reshape(ranks.shape)
+    return pos, steps.reshape(ranks.shape) if steps is not None else None
+
+
+def l2_read(table: torch.Tensor, reps: int, out: torch.Tensor) -> None:
+    """Read the contiguous CUDA tensor ``table`` (a multiple of 16 bytes,
+    small enough to stay in L2) ``reps`` times over the whole card,
+    through L2 only, in one launch: the probe behind the walk kernel's
+    L2 bound (``out``, one int32 on the same device, is written only to
+    keep the loads).  Not a kernel of the alignment path: it counts as no
+    launch."""
+    guard = cuda_lib.on_device("l2_read", table.device, out)
+    nbytes = table.numel() * table.element_size()
+    if not table.is_contiguous() or nbytes % 16 or not nbytes:
+        raise ValueError("l2_read: a contiguous CUDA table of a multiple "
+                         "of 16 bytes")
+    sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+    lib = cuda_lib.load(WALK)
+    with guard:
+        rc = lib.sa_l2_read(
+            ctypes.c_void_p(table.data_ptr()), ctypes.c_longlong(nbytes // 16),
+            ctypes.c_int(reps), ctypes.c_int(8 * sms),
+            ctypes.c_void_p(out.data_ptr()), cuda_lib.stream_ptr(table.device))
+    cuda_lib.check(rc, "sa_l2_read")
 
 
 def load_chase(table: torch.Tensor, n: int, out: torch.Tensor) -> None:

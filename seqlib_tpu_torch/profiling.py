@@ -21,7 +21,11 @@ While it is on:
   called once the batch's outputs have been copied to the host, stores
   the elapsed milliseconds on each such span as ``attrs["stream_ms"]``;
   no event is read before that, so timing adds no wait for the device;
-- counters add up in one table under one lock.
+- counters add up in one table under one lock;
+- ``count_device`` takes counters a kernel totalled on the device: it
+  copies them to pinned host memory behind a CUDA event, and
+  ``device_times(batch)`` adds them once the device has passed it (no
+  wait either).
 
 Spans and counters stay in memory until ``take()`` drains them.
 
@@ -122,6 +126,8 @@ class _Tracer:
         self.spans: list[Span] = []
         self.counters: dict[str, int] = {}
         self.pending: list[Span] = []    # spans whose events are unread
+        # (batch, names, pinned host copy, event) of device counters
+        self.pending_counts: list[tuple] = []
         self.ids = itertools.count(1)
 
 
@@ -172,8 +178,35 @@ def count(name: str, n: int = 1) -> None:
     value the host already holds: never a read of a device tensor."""
     if not _depth:
         return
+    _add([(name, n)])
+
+
+def _add(items) -> None:
     with _LOCK:
-        _TRACER.counters[name] = _TRACER.counters.get(name, 0) + int(n)
+        for name, n in items:
+            _TRACER.counters[name] = _TRACER.counters.get(name, 0) + int(n)
+
+
+def count_device(names, values: torch.Tensor) -> None:
+    """Add the integer tensor ``values`` (one value per name of
+    ``names``) to those counters while tracing is on, without a host
+    read: a CUDA tensor is copied to pinned host memory behind an event
+    on its device's current stream, and ``device_times`` of the
+    innermost open span's batch (or ``take``) adds it once the device
+    has passed that event.  A CPU tensor is added at once."""
+    if not _depth:
+        return
+    if not values.is_cuda:
+        _add(zip(names, values.tolist()))
+        return
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(values.device))
+    stack = _stack()
+    batch = stack[-1].batch if stack else None
+    with _LOCK:
+        _TRACER.pending_counts.append((batch, tuple(names), host, ev))
 
 
 def _site(kind: str, site: str):
@@ -204,14 +237,23 @@ def new_batch() -> int:
 
 def device_times(batch) -> None:
     """Store ``attrs["stream_ms"]`` on the timed spans of ``batch`` whose
-    end event the device has passed (no wait).  Call it where the
+    end event the device has passed, and add the device counters of
+    ``batch`` whose event it has passed (no wait); a counter it has not
+    passed stays for a later call or ``take``.  Call it where the
     batch's outputs have been copied to the host."""
-    if not _TRACER.pending:
+    if not _TRACER.pending and not _TRACER.pending_counts:
         return
     with _LOCK:
         mine = [s for s in _TRACER.pending if s.batch == batch]
         _TRACER.pending = [s for s in _TRACER.pending if s.batch != batch]
+        counts = [c for c in _TRACER.pending_counts if c[0] == batch]
+        _TRACER.pending_counts = [c for c in _TRACER.pending_counts
+                                  if c[0] != batch]
     _read_events(mine)
+    late = _read_counts(counts)
+    if late:
+        with _LOCK:
+            _TRACER.pending_counts.extend(late)
 
 
 def _read_events(spans) -> None:
@@ -222,15 +264,32 @@ def _read_events(spans) -> None:
         s._events = None
 
 
+def _read_counts(counts) -> list:
+    """Add the device counters whose event has passed; returns the
+    others."""
+    late = []
+    for c in counts:
+        _, names, host, ev = c
+        if ev.query():
+            _add(zip(names, host.tolist()))
+        else:
+            late.append(c)
+    return late
+
+
 def take() -> Records:
     """Drain the spans and counters recorded so far.  Timed spans whose
     events are still unread are read now where the device has passed
-    them."""
+    them, and so are device counters; those it has not passed are
+    dropped."""
     with _LOCK:
         pending, _TRACER.pending = _TRACER.pending, []
+        counts, _TRACER.pending_counts = _TRACER.pending_counts, []
+    _read_events(pending)
+    _read_counts(counts)
+    with _LOCK:
         spans, _TRACER.spans = _TRACER.spans, []
         counters, _TRACER.counters = _TRACER.counters, {}
-    _read_events(pending)
     return Records(spans, counters)
 
 

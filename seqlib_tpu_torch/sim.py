@@ -19,6 +19,9 @@ names): the same seed gives the same pairs.
 batches (random reads with repeats, and a 4 kb region with a planted
 tie, an N and an early error) that the k-mer pipeline is checked on.
 
+``random_bwt_index`` is the locate tests' index over a random BWT,
+whose LF cycles send some lanes of the SA walk to its cap.
+
 ``make_repeat_genome`` / ``make_repeat_reads`` are the port's copy of
 the hermetic repeat corpus of ``tests/regen_golden.py`` (131 kb contig
 'rep1', 1000 reads in 10 classes), whose golden SAM
@@ -230,6 +233,28 @@ def edge_read_batch(genome: str, B: int, L: int, seed: int = 0):
     reads[np.arange(L)[None, :] >= lens[:, None]] = 4
     active = (lens > 0) & (idx % 11 != 5)
     return reads, lens, active
+
+
+def random_bwt_index(n: int, seed: int, intv: int = 32):
+    """The host arrays ``DeviceFMIndex.from_host`` reads (narrow or
+    wide), over a random "BWT" of n codes and a random SA sampled at
+    ``intv``: no text has them, but its LF is a permutation of the ranks
+    with several cycles, so a lane on a cycle that holds no multiple of
+    ``intv`` and not ``primary`` walks LF until the cap (seed 1 has such
+    lanes at intervals 32 and 4).  The SA walk's tests run on it."""
+    from types import SimpleNamespace
+
+    from .index.fmindex import occ_layout
+    rng = np.random.default_rng(seed)
+    bwt = rng.integers(0, 4, n).astype(np.uint8)
+    cp_counts, bwt_words = occ_layout(bwt)
+    L2 = np.concatenate([[0], np.cumsum(np.bincount(bwt, minlength=4))])
+    primary = int(rng.integers(1, n))
+    samples = rng.integers(0, n, n // intv + 1).astype(np.uint64)
+    return SimpleNamespace(
+        cp_counts=cp_counts, bwt_words=bwt_words, L2=L2.astype(np.int64),
+        primary=primary, sa_full=None, sa_samples=samples, sa_intv=intv,
+        seq_len=n, l_pac=n // 2)
 
 
 def kmer_batch():

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from seqlib_tpu_torch import profiling
 from seqlib_tpu_torch.align import BWAAligner
 from seqlib_tpu_torch.align.pairing import align_pairs
 from seqlib_tpu_torch.assembly import BFC, FermiAssembler
@@ -31,13 +32,14 @@ from seqlib_tpu_torch.io import BAM, BamReader, BamWriter
 from seqlib_tpu_torch.io.bam import read_record
 from seqlib_tpu_torch.io.fast_bam import FastBamReader
 from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, kmer, sw_cuda
-from seqlib_tpu_torch.ops.fm import DeviceFMIndex, _smem_machine, smem_machine
+from seqlib_tpu_torch.ops.fm import (DeviceFMIndex, _smem_machine, sa_lookup,
+                                     smem_machine)
 from seqlib_tpu_torch.ops.sw import extend_batch, extend_rect
 from seqlib_tpu_torch.sim import (edge_read_batch, kmer_batch,
                                   kmer_region_reads, make_genome,
                                   make_repeat_genome, make_repeat_reads,
-                                  simulate_long_reads, simulate_pairs,
-                                  simulate_reads)
+                                  random_bwt_index, simulate_long_reads,
+                                  simulate_pairs, simulate_reads)
 
 pytestmark = pytest.mark.gpu
 
@@ -329,31 +331,141 @@ def test_load_chase_follows_the_chain(cuda):
 
 
 @pytest.fixture(scope="module")
-def loaded_index(genome, tmp_path_factory):
+def built_index(genome):
+    """The genome's index built in memory: the full SA."""
+    return FMIndex.construct([("c1", genome[:120_000]),
+                              ("c2", "N" * 50 + genome[120_050:])])
+
+
+@pytest.fixture(scope="module")
+def loaded_index(built_index, tmp_path_factory):
     """The genome's index written as bwa's files and loaded back: a
     sampled SA (interval 32), no full SA."""
     prefix = str(tmp_path_factory.mktemp("bwa_index") / "ref.fa")
-    FMIndex.construct([("c1", genome[:120_000]),
-                       ("c2", "N" * 50 + genome[120_050:])]).write(prefix)
+    built_index.write(prefix)
     idx = FMIndex.load(prefix)
     assert idx.sa_full is None and idx.sa_intv == 32
     return idx
 
 
-def test_sa_lookup_walk_gpu_equals_cpu(cuda, loaded_index):
-    """The LF walk on the card equals the CPU's on 100,000 random ranks
-    (-1, 0 and primary among them)."""
-    from seqlib_tpu_torch.ops.fm import sa_lookup
-    idx = loaded_index
+def _sampled(fm, intv: int):
+    """``fm`` (a full SA) with its SA sampled at every ``intv``-th rank."""
+    return DeviceFMIndex(blocks=fm.blocks, sa=fm.sa[::intv].contiguous(),
+                         L2=fm.L2, L2_host=fm.L2_host, primary=fm.primary,
+                         seq_len=fm.seq_len, l_pac=fm.l_pac, sa_intv=intv)
+
+
+def _walk_equal(fm, ranks: np.ndarray, cuda):
+    """The walk kernel on the card against the plain loop on the CPU
+    (``fm`` a CPU index): positions and steps bit-equal, with and
+    without ``return_steps``, exactly one launch a call; under the
+    tracer the kernel's device totals equal the plain loop's counters
+    and no device read is counted.  Returns the steps."""
+    r = torch.from_numpy(ranks)
+    profiling.take()
+    with profiling.tracing():
+        c, cs = sa_lookup(fm, r, return_steps=True)
+    want = profiling.take().counters
+    gfm, gr = fm.to(cuda), r.to(cuda)
+    n0 = cuda_lib.LAUNCHES["sa_walk"]
+    with profiling.tracing():
+        g, gs = sa_lookup(gfm, gr, return_steps=True)
+        torch.cuda.synchronize()
+    got = profiling.take().counters
+    assert cuda_lib.LAUNCHES["sa_walk"] == n0 + 1
+    assert torch.equal(g.cpu(), c) and torch.equal(gs.cpu(), cs)
+    assert torch.equal(sa_lookup(gfm, gr).cpu(), c)
+    assert cuda_lib.LAUNCHES["sa_walk"] == n0 + 2
+    assert got["locate.walk_launches"] == 1
+    assert not any(k.startswith("sync.") for k in got)
+    for k in fm_cuda.WALK_COUNTERS:
+        assert got[k] == want[k], (k, got[k], want[k])
+    return cs
+
+
+@pytest.mark.parametrize("intv", [32, 4])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_sa_lookup_walk_gpu_equals_cpu(cuda, built_index, loaded_index,
+                                       wide, intv):
+    """The walk kernel on 100,000 random ranks (-1, 0 and primary among
+    them) equals the plain loop: the loaded index (interval 32) or the
+    built one's SA sampled at 4, narrow and wide rows."""
+    idx = loaded_index if intv == 32 else built_index
+    fm = DeviceFMIndex.from_host(idx, device="cpu", wide=wide)
+    if intv != 32:
+        fm = _sampled(fm, intv)
+    assert fm.sa_intv == intv and fm.wide == wide
     ranks = np.random.default_rng(12).integers(-1, idx.seq_len + 1, 100_000)
     ranks[:3] = (-1, 0, idx.primary)
-    r = torch.from_numpy(ranks)
-    g, gs = sa_lookup(DeviceFMIndex.from_host(idx, device=cuda), r.to(cuda),
-                      return_steps=True)
-    c, cs = sa_lookup(DeviceFMIndex.from_host(idx, device="cpu"), r,
-                      return_steps=True)
-    assert torch.equal(g.cpu(), c) and torch.equal(gs.cpu(), cs)
-    assert int(cs.max()) > 32
+    cs = _walk_equal(fm, ranks, cuda)
+    assert int(cs.max()) > intv and int(cs[:3].max()) == 0
+
+
+@pytest.mark.parametrize("intv", [32, 4])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_sa_walk_cap_gpu_equals_cpu(cuda, wide, intv):
+    """Lanes still walking at the cap (64 x intv steps) get
+    ``sa[r // intv] + steps`` from the kernel as from the plain loop."""
+    fm = DeviceFMIndex.from_host(random_bwt_index(2000, 1, intv),
+                                 device="cpu", wide=wide)
+    ranks = np.arange(-1, 2001)
+    ranks[1:3] = (0, fm.primary)
+    cs = _walk_equal(fm, ranks, cuda)
+    assert int((cs == 64 * intv).sum()) > 0
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_sa_walk_large_interval_gpu(cuda, built_index, wide):
+    """An SA sampled at 10,000 (bwa's ``bwt2sa -i`` takes any interval):
+    walks of thousands of steps, too long for the plain loop here.  The
+    kernel's positions are the full SA's, and its steps those the
+    inverse SA implies (a step goes back one text position, to the
+    nearest position whose rank is sampled, or 0); one launch, and its
+    device totals agree."""
+    intv = 10_000
+    fm = _sampled(DeviceFMIndex.from_host(built_index, device="cpu",
+                                          wide=wide), intv)
+    sa = built_index.sa_full.astype(np.int64)
+    isa = np.empty_like(sa)
+    isa[sa] = np.arange(sa.size)
+    stop = isa % intv == 0
+    stop[0] = True
+    last = np.maximum.accumulate(np.where(stop, np.arange(stop.size), 0))
+    ranks = np.random.default_rng(5).integers(1, built_index.seq_len + 1,
+                                              4096)
+    ranks[:3] = (-1, 0, built_index.primary)
+    want_pos = sa[np.maximum(ranks, 0)]
+    want_steps = want_pos - last[want_pos]
+    want_pos[:3], want_steps[:3] = (-1, 0, 0), 0
+    n0 = cuda_lib.LAUNCHES["sa_walk"]
+    profiling.take()
+    with profiling.tracing():
+        pos, steps = sa_lookup(fm.to(cuda), torch.from_numpy(ranks).to(cuda),
+                               return_steps=True)
+        torch.cuda.synchronize()
+    got = profiling.take().counters
+    assert cuda_lib.LAUNCHES["sa_walk"] == n0 + 1
+    assert np.array_equal(pos.cpu().numpy(), want_pos)
+    assert np.array_equal(steps.cpu().numpy(), want_steps)
+    assert int(want_steps.max()) > 8191
+    assert got["locate.lanes"] == 4095
+    assert got["locate.lane_steps"] == int(want_steps.sum())
+    assert got["locate.capped"] == 0
+
+
+def test_sa_lookup_full_sa_launches_no_walk(cuda, built_index):
+    """A built index (the full SA) locates by one gather, as on the CPU:
+    no walk launch, no walk counter."""
+    fm = DeviceFMIndex.from_host(built_index, device="cpu")
+    ranks = torch.arange(-1, built_index.seq_len + 1)
+    n0 = cuda_lib.LAUNCHES["sa_walk"]
+    profiling.take()
+    with profiling.tracing():
+        pos = sa_lookup(fm.to(cuda), ranks.to(cuda))
+    assert not any(k.startswith("locate.")
+                   for k in profiling.take().counters)
+    assert cuda_lib.LAUNCHES["sa_walk"] == n0
+    assert torch.equal(pos.cpu(), sa_lookup(fm, ranks))
 
 
 def test_loaded_index_gpu_equals_cpu(cuda, genome, loaded_index):
@@ -365,6 +477,7 @@ def test_loaded_index_gpu_equals_cpu(cuda, genome, loaded_index):
     g = BWAAligner(loaded_index, device=cuda).align_batch_bam(seqs, names,
                                                               sam=True)
     assert all(cuda_lib.LAUNCHES[k] > 0 for k in cuda_lib.MAIN_PATH)
+    assert cuda_lib.LAUNCHES["sa_walk"] > 0
     c = BWAAligner(loaded_index, device="cpu").align_batch_bam(seqs, names,
                                                                sam=True)
     assert g[0] == c[0]

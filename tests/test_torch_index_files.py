@@ -25,7 +25,10 @@ from seqlib_tpu_torch.index import FMIndex, Lrand48, pack_sequences
 from seqlib_tpu_torch.index.bwa_files import (deinterleave_occ,
                                               interleave_occ)
 from seqlib_tpu_torch.index.fmindex import occ_layout
+from seqlib_tpu_torch import profiling
 from seqlib_tpu_torch.ops import fm as tfm
+from seqlib_tpu_torch.ops import fm_cuda
+from seqlib_tpu_torch.sim import random_bwt_index
 
 EXTS = (".pac", ".ann", ".amb", ".bwt", ".sa")
 
@@ -249,30 +252,14 @@ def test_device_sa_lookup_walk_equals_jax(tmp_path):
 
 
 def _fake_indexes(n: int, seed: int):
-    """A JAX and a port device index over a random "BWT" of n codes: its
-    LF is a permutation of the ranks with several cycles, and a lane on
-    a cycle that holds no multiple of sa_intv and not primary walks
-    until the cap."""
-    rng = np.random.default_rng(seed)
-    bwt = rng.integers(0, 4, n).astype(np.uint8)
-    cps, words = occ_layout(bwt)
-    blocks = np.zeros((words.shape[0] + 1, 12), np.uint32)
-    blocks[:, :4] = cps
-    blocks[:-1, 4:] = words
-    L2 = np.concatenate([[0], np.cumsum(np.bincount(bwt, minlength=4))])
-    primary = int(rng.integers(1, n))
-    sa = rng.integers(0, n, n // 32 + 1)
-    sa[0] = 0
+    """A JAX and a port device index over ``sim.random_bwt_index``."""
+    tf = tfm.DeviceFMIndex.from_host(random_bwt_index(n, seed), device="cpu")
     jf = jfm.DeviceFMIndex(
-        blocks=jnp.asarray(blocks), sa_samples=jnp.asarray(sa.astype(np.int32)),
-        L2=jnp.asarray(L2.astype(np.int32)), primary=jnp.asarray(
-            np.int32(primary)), seq_len=n, sa_intv=32, l_pac=n // 2)
-    tf = tfm.DeviceFMIndex(
-        blocks=torch.from_numpy(blocks.view(np.int32)),
-        sa=torch.from_numpy(sa.astype(np.int64)),
-        L2=torch.from_numpy(L2.astype(np.int64)),
-        L2_host=tuple(int(v) for v in L2), primary=primary, seq_len=n,
-        l_pac=n // 2, sa_intv=32)
+        blocks=jnp.asarray(tf.blocks.numpy().view(np.uint32)),
+        sa_samples=jnp.asarray(tf.sa.numpy().astype(np.int32)),
+        L2=jnp.asarray(np.asarray(tf.L2_host, np.int32)),
+        primary=jnp.asarray(np.int32(tf.primary)), seq_len=n, sa_intv=32,
+        l_pac=n // 2)
     return jf, tf
 
 
@@ -288,6 +275,57 @@ def test_device_sa_lookup_walk_cap_equals_jax(monkeypatch):
     want = np.asarray(jfm.sa_lookup(jf, jnp.asarray(ranks.astype(np.int32))))
     assert int((steps == 2048).sum()) > 0
     assert np.array_equal(pos.numpy(), want.astype(np.int64))
+
+
+def _walk_counters(fm, ranks: np.ndarray) -> dict:
+    """The plain walk's counters under the tracer, checked against what
+    its steps say: ``locate.lanes`` the valid ranks, ``locate.lane_steps``
+    their steps' sum, ``locate.capped`` the lanes that walked the cap's
+    64 x sa_intv steps; no kernel launch counted; positions and steps
+    equal with the tracer off."""
+    r = torch.from_numpy(ranks)
+    profiling.take()
+    off = tfm.sa_lookup(fm, r, return_steps=True)
+    with profiling.tracing():
+        pos, steps = tfm.sa_lookup(fm, r, return_steps=True)
+    c = profiling.take().counters
+    assert torch.equal(pos, off[0]) and torch.equal(steps, off[1])
+    assert c["locate.lanes"] == int((r >= 0).sum())
+    assert c["locate.lane_steps"] == int(steps.sum())
+    assert c["locate.capped"] == int((steps == 64 * fm.sa_intv).sum())
+    assert c["locate.rounds"] >= -(-int(steps.max()) // tfm.WALK_CHECK)
+    assert "locate.walk_launches" not in c
+    return c
+
+
+def test_walk_counters_equal_its_steps(ref):
+    """On a loaded index no lane reaches the cap."""
+    _, _, _, d = ref
+    tl = FMIndex.load(str(d / "port"))
+    c = _walk_counters(tfm.DeviceFMIndex.from_host(tl, device="cpu"),
+                       _walk_ranks(tl, 11, 4011))
+    assert c["locate.lane_steps"] > c["locate.lanes"] > 0
+    assert c["locate.capped"] == 0
+
+
+@pytest.mark.parametrize("check", [8, 5])
+def test_walk_counters_equal_its_steps_at_the_cap(check, monkeypatch):
+    """Lanes on an LF cycle with no sample walk to the cap and count in
+    ``locate.capped``, whatever the check interval."""
+    _, tf = _fake_indexes(2000, seed=1)
+    monkeypatch.setattr(tfm, "WALK_CHECK", check)
+    c = _walk_counters(tf, np.arange(-1, 2001))
+    assert c["locate.capped"] > 0
+
+
+def test_walk_kernel_takes_cuda_tensors_only(ref):
+    """The walk kernel's wrapper refuses CPU tensors before it loads or
+    builds anything; ``sa_lookup`` routes them to the plain loop."""
+    _, _, _, d = ref
+    fl = tfm.DeviceFMIndex.from_host(FMIndex.load(str(d / "port")),
+                                     device="cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        fm_cuda.sa_walk_cuda(fl, torch.zeros(3, dtype=torch.int64))
 
 
 def test_jax_read_sa_keeps_one_sample_too_many(ref):

@@ -240,6 +240,21 @@ def test_counters_repeat_and_come_from_the_host(runs):
     assert a["global_dp.dp_rows_run"] > 0
 
 
+def test_device_counters_of_a_cpu_tensor_add_at_once():
+    """``count_device`` adds nothing while the tracer is off, and a CPU
+    tensor's values at once while it is on; the walk's counters come
+    from the plain loop on the CPU and from the kernel's totals on a
+    card (``tests/test_torch_gpu.py``)."""
+    profiling.take()
+    values = torch.tensor([2, 0, 5], dtype=torch.int64)
+    profiling.count_device(("a", "b", "c"), values)
+    assert profiling.take().counters == {}
+    with profiling.tracing():
+        profiling.count_device(("a", "b", "c"), values)
+        profiling.count_device(("a", "b", "c"), values)
+    assert profiling.take().counters == {"a": 4, "b": 0, "c": 10}
+
+
 def test_stage_timer_sums_spans(runs):
     spans = runs["rec"].spans
     t = profiling.StageTimer().add(spans)
@@ -339,6 +354,12 @@ def test_stage_device_times_on_the_card(tmp_path):
     kids = _children(rec.spans)
     fulls = [s for s in rec.spans if s.name == "align.full"]
     assert len(fulls) == 2
+    # the loaded index's walk: one kernel launch a batch, its device
+    # totals added by the finish's device_times, and no device read
+    c = rec.counters
+    assert c["locate.walk_launches"] == 2
+    assert c["locate.lane_steps"] > 0 and c["locate.lanes"] > 0
+    assert not any(k.startswith("sync.locate.") for k in c)
     for full in fulls:
         stages = [k for k in kids[full.id] if k.name in STAGES]
         assert sorted(k.name for k in stages) == sorted(STAGES)
