@@ -215,6 +215,9 @@ class BWAAligner:
     whose 2L text is 2^31 or more takes it, and ``wide=True`` forces it
     on any index.  ``mesh`` (a ``parallel.Mesh``) splits every batch
     over its entries; ``device`` is then the mesh's first device.
+    Construction puts the index (``DeviceFMIndex.from_host``) and the 2L
+    text on the device; while the tracer is on, the text's copy is the
+    span ``index.upload_text`` (counter ``index.text_bytes``).
     Scoring options are set through the ``set_*`` methods
     (reference-style names) or ``self.options``."""
 
@@ -229,10 +232,12 @@ class BWAAligner:
         self.index = index
         self.options = options or AlignerOptions()
         self.wide = index.seq_len >= 2**31 if wide is None else bool(wide)
-        self.text = both_strands(index.ref.codes)
         self.fm = DeviceFMIndex.from_host(index, device=self.device,
                                           wide=self.wide)
-        self.text_t = torch.from_numpy(self.text).to(self.device)
+        with profiling.span("index.upload_text"):
+            self.text = both_strands(index.ref.codes)
+            self.text_t = torch.from_numpy(self.text).to(self.device)
+            profiling.placed("index.text_bytes", self.text_t)
         # the index and the 2L text on each of the mesh's devices
         self._on = {self.device: (self.fm, self.text_t)}
         for dev in (mesh.distinct() if mesh is not None else ()):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import profiling
 from ..core.header import BamHeader
 from ..native import suffix_array
 from .bwa_files import (OCC_INTERVAL, SA_INTERVAL, deinterleave_occ,
@@ -137,26 +138,34 @@ class FMIndex:
     @classmethod
     def load(cls, prefix: str) -> "FMIndex":
         """Read ``prefix``.{pac, ann, amb, bwt, sa}; the full SA stays
-        None (a locate walks to a sample)."""
+        None (a locate walks to a sample).  While the tracer is on, the
+        span ``index.load`` holds ``index.read_pac`` (.ann, .amb, .pac),
+        ``index.read_bwt``, ``index.layout`` (the .bwt body split into
+        BWT codes, checkpoints and words) and ``index.read_sa``."""
         idx = cls()
-        l_pac, seed, anns = read_ann(prefix + ".ann")
-        holes = read_amb(prefix + ".amb")
-        codes = read_pac(prefix + ".pac")
-        if codes.size != l_pac:
-            raise ValueError(f"{prefix}.pac holds {codes.size} bases, "
-                             f".ann says {l_pac}")
-        idx.ref = PackedReference(codes, anns, holes, seed)
-        primary, L2, words = read_bwt(prefix + ".bwt")
-        idx.primary = int(primary)
-        idx.L2 = L2.astype(np.int64)
-        idx.seq_len = n = int(L2[4])
-        idx.bwt = deinterleave_occ(words, n)[0]
-        idx.cp_counts, idx.bwt_words = split_occ(words, n)
-        sp, intv, seq_len, sa = read_sa(prefix + ".sa")
-        if sp != primary or seq_len != n:
-            raise ValueError(f"{prefix}.sa does not match {prefix}.bwt")
-        idx.sa_intv = intv
-        idx.sa_samples = sa
+        with profiling.span("index.load"):
+            with profiling.span("index.read_pac"):
+                l_pac, seed, anns = read_ann(prefix + ".ann")
+                holes = read_amb(prefix + ".amb")
+                codes = read_pac(prefix + ".pac")
+            if codes.size != l_pac:
+                raise ValueError(f"{prefix}.pac holds {codes.size} bases, "
+                                 f".ann says {l_pac}")
+            idx.ref = PackedReference(codes, anns, holes, seed)
+            with profiling.span("index.read_bwt"):
+                primary, L2, words = read_bwt(prefix + ".bwt")
+            idx.primary = int(primary)
+            idx.L2 = L2.astype(np.int64)
+            idx.seq_len = n = int(L2[4])
+            with profiling.span("index.layout"):
+                idx.bwt = deinterleave_occ(words, n)[0]
+                idx.cp_counts, idx.bwt_words = split_occ(words, n)
+            with profiling.span("index.read_sa"):
+                sp, intv, seq_len, sa = read_sa(prefix + ".sa")
+            if sp != primary or seq_len != n:
+                raise ValueError(f"{prefix}.sa does not match {prefix}.bwt")
+            idx.sa_intv = intv
+            idx.sa_samples = sa
         return idx
 
     # ------------------------------------------------------------------

@@ -105,7 +105,12 @@ class DeviceFMIndex:
         an index raises (its ranks do not fit int32).  ``count_bias``
         (int64 [4], wide only) adds bias[c] to every checkpoint of code
         c, so rank'(c, k) = rank(c, k) + bias[c]: the JAX package's test
-        hook that gives ranks past 2^31 on a small index."""
+        hook that gives ranks past 2^31 on a small index.
+
+        While the tracer is on, the span ``index.upload`` covers the
+        tables' layout and copy, and the counters ``index.occ_bytes`` and
+        ``index.sa_bytes`` take the bytes of the checkpoint rows and of
+        the SA put on the device."""
         dev = resolve_device(device)
         if wide is None:
             wide = idx.seq_len >= 2**31
@@ -114,31 +119,36 @@ class DeviceFMIndex:
                 f"a 2L text of {idx.seq_len} >= 2^31 needs wide=True")
         if count_bias is not None and not wide:
             raise ValueError("count_bias needs wide=True")
-        nb = idx.bwt_words.shape[0]
-        cp = idx.cp_counts.astype(np.int64)[:nb + 1]
-        words = np.zeros((nb + 1, 8), np.uint32)
-        words[:nb] = idx.bwt_words
-        if wide:
-            if count_bias is not None:
-                cp = cp + np.asarray(count_bias, np.int64)[None, :]
-            blocks = np.concatenate(
-                [cp, np.ascontiguousarray(words).view(np.int64)], axis=1)
-        else:
-            blocks = np.concatenate(
-                [cp.astype(np.uint32), words], axis=1).view(np.int32)
-        if idx.sa_full is not None:
-            sa, sa_intv = idx.sa_full.astype(np.int64), 1
-        else:
-            sa, sa_intv = idx.sa_samples.astype(np.int64), int(idx.sa_intv)
-        sa[0] = 0
-        L2 = np.asarray(idx.L2, np.int64)
-        return cls(
-            blocks=torch.from_numpy(np.ascontiguousarray(blocks)).to(dev),
-            sa=torch.from_numpy(sa).to(dev),
-            L2=torch.from_numpy(L2.copy()).to(dev),
-            L2_host=tuple(int(v) for v in L2),
-            primary=int(idx.primary), seq_len=int(idx.seq_len),
-            l_pac=int(idx.l_pac), sa_intv=sa_intv)
+        with profiling.span("index.upload"):
+            nb = idx.bwt_words.shape[0]
+            cp = idx.cp_counts.astype(np.int64)[:nb + 1]
+            words = np.zeros((nb + 1, 8), np.uint32)
+            words[:nb] = idx.bwt_words
+            if wide:
+                if count_bias is not None:
+                    cp = cp + np.asarray(count_bias, np.int64)[None, :]
+                blocks = np.concatenate(
+                    [cp, np.ascontiguousarray(words).view(np.int64)], axis=1)
+            else:
+                blocks = np.concatenate(
+                    [cp.astype(np.uint32), words], axis=1).view(np.int32)
+            if idx.sa_full is not None:
+                sa, sa_intv = idx.sa_full.astype(np.int64), 1
+            else:
+                sa = idx.sa_samples.astype(np.int64)
+                sa_intv = int(idx.sa_intv)
+            sa[0] = 0
+            L2 = np.asarray(idx.L2, np.int64)
+            out = cls(
+                blocks=torch.from_numpy(np.ascontiguousarray(blocks)).to(dev),
+                sa=torch.from_numpy(sa).to(dev),
+                L2=torch.from_numpy(L2.copy()).to(dev),
+                L2_host=tuple(int(v) for v in L2),
+                primary=int(idx.primary), seq_len=int(idx.seq_len),
+                l_pac=int(idx.l_pac), sa_intv=sa_intv)
+            profiling.placed("index.occ_bytes", out.blocks)
+            profiling.placed("index.sa_bytes", out.sa)
+        return out
 
 
 # ---------------------------------------------------------------------------

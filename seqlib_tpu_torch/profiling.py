@@ -22,6 +22,8 @@ While it is on:
   the elapsed milliseconds on each such span as ``attrs["stream_ms"]``;
   no event is read before that, so timing adds no wait for the device;
 - counters add up in one table under one lock;
+- ``placed`` counts the bytes of a table put on the device and waits
+  for that device (set-up's ``index.*_bytes``);
 - ``count_device`` takes counters a kernel totalled on the device: it
   copies them to pinned host memory behind a CUDA event, and
   ``device_times(batch)`` adds them once the device has passed it (no
@@ -207,6 +209,18 @@ def count_device(names, values: torch.Tensor) -> None:
     batch = stack[-1].batch if stack else None
     with _LOCK:
         _TRACER.pending_counts.append((batch, tuple(names), host, ev))
+
+
+def placed(name: str, t: torch.Tensor) -> None:
+    """While tracing is on: add the bytes of ``t`` (``numel x
+    element_size``) to counter ``name`` and, where ``t`` is on a card,
+    wait for that card, so that a span around the copy that put ``t``
+    there ends once it is there."""
+    if not _depth:
+        return
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    _add([(name, t.numel() * t.element_size())])
 
 
 def _site(kind: str, site: str):

@@ -10,6 +10,9 @@ batch id on a worker thread, link parents into a tree, stamp spans on
 the profiler's clock, add no read of a device value (the profiler's
 ``aten::_local_scalar_dense`` and ``aten::nonzero`` calls, which equal
 the ``sync.*`` counters inside ``align.full``) and count the same twice.
+Loading bwa's files and putting the index on the device record the
+``index.*`` spans and the bytes put there while the tracer is on,
+nothing while it is off, and load the same index either way.
 
 The ``gpu`` test runs on a card only (``--noconftest``: this file does
 not import JAX):
@@ -32,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 from seqlib_tpu_torch import profiling
 from seqlib_tpu_torch.align import AlignerOptions, BWAAligner
 from seqlib_tpu_torch.index import FMIndex
+from seqlib_tpu_torch.ops.fm import DeviceFMIndex
 from seqlib_tpu_torch.sim import make_genome, simulate_reads
 
 Read = collections.namedtuple("Read", "name seq")
@@ -317,6 +321,77 @@ def test_tracer_under_threads():
     outer = {s.id: s.thread for s in rec.spans if s.name == "t"}
     assert all(outer[s.parent] == s.thread for s in rec.spans
                if s.name == "u")
+
+
+@pytest.fixture(scope="module")
+def loads(tmp_path_factory):
+    """bwa's files of a small two-contig index, loaded and put on the
+    device with the tracer off, then on: (off, on, records)."""
+    genome = make_genome(20_000, seed=9, n_segments=1, seg_len=1000)
+    prefix = str(tmp_path_factory.mktemp("index_spans") / "ref")
+    FMIndex.construct([("a", genome[:12_000]),
+                       ("b", genome[12_000:])]).write(prefix)
+    profiling.take()
+    off = FMIndex.load(prefix)
+    off_fm = DeviceFMIndex.from_host(off, device="cpu")
+    off_aln = BWAAligner(off, device="cpu")
+    left = profiling.take()
+    with profiling.tracing():
+        on = FMIndex.load(prefix)
+        on_fm = DeviceFMIndex.from_host(on, device="cpu")
+    rec = profiling.take()
+    with profiling.tracing():
+        on_aln = BWAAligner(on, device="cpu")
+    rec_aln = profiling.take()
+    return dict(off=(off, off_fm, off_aln), on=(on, on_fm, on_aln),
+                left=left, rec=rec, rec_aln=rec_aln)
+
+
+def test_index_load_and_upload_spans(loads):
+    """``FMIndex.load`` records ``index.load`` and its four children,
+    ``from_host`` ``index.upload`` with the bytes of the tables it put on
+    the device, and the aligner ``index.upload_text`` with the text's;
+    nothing while the tracer is off."""
+    assert loads["left"] == ([], {})
+    idx, fm, aln = loads["on"]
+    spans = {s.name: s for s in loads["rec"].spans}
+    assert len(spans) == len(loads["rec"].spans) == 6
+    load = spans.pop("index.load")
+    upload = spans.pop("index.upload")
+    assert set(spans) == {"index.read_pac", "index.read_bwt",
+                          "index.layout", "index.read_sa"}
+    assert all(s.parent == load.id for s in spans.values())
+    assert load.parent is None and upload.parent is None
+    assert load.start_ns <= min(s.start_ns for s in spans.values()) \
+        and max(s.end_ns for s in spans.values()) <= load.end_ns
+    assert load.end_ns <= upload.start_ns
+    assert loads["rec"].counters == {
+        "index.occ_bytes": fm.blocks.numel() * 4,
+        "index.sa_bytes": 8 * idx.sa_samples.size}
+    assert fm.blocks.shape == (idx.bwt_words.shape[0] + 1, 12)
+    assert [s.name for s in loads["rec_aln"].spans] == [
+        "index.upload", "index.upload_text"]
+    assert loads["rec_aln"].counters == {
+        "index.occ_bytes": fm.blocks.numel() * 4,
+        "index.sa_bytes": 8 * idx.sa_samples.size,
+        "index.text_bytes": 2 * idx.l_pac}
+    assert aln.text_t.numel() == 2 * idx.l_pac
+
+
+def test_index_load_same_with_tracing_on_and_off(loads):
+    (a, fa, la), (b, fb, lb) = loads["off"], loads["on"]
+    for k in ("bwt", "cp_counts", "bwt_words", "sa_samples", "L2"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+    assert (a.primary, a.seq_len, a.sa_intv, a.sa_full) == \
+        (b.primary, b.seq_len, b.sa_intv, b.sa_full)
+    assert np.array_equal(a.ref.codes, b.ref.codes)
+    assert a.ref.anns == b.ref.anns and a.ref.holes == b.ref.holes
+    for k in ("blocks", "sa", "L2"):
+        assert torch.equal(getattr(fa, k), getattr(fb, k)), k
+    assert (fa.L2_host, fa.primary, fa.seq_len, fa.l_pac, fa.sa_intv) == \
+        (fb.L2_host, fb.primary, fb.seq_len, fb.l_pac, fb.sa_intv)
+    assert torch.equal(la.text_t, lb.text_t)
+    assert torch.equal(la.fm.blocks, lb.fm.blocks)
 
 
 @pytest.mark.gpu
