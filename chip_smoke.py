@@ -113,7 +113,12 @@ last line is printed):
    ms a launch, ms with the wrapper, the plain loop's ms) beside its
    bound: the largest of the HBM stream, the L2 traffic at L2's read
    bandwidth measured on the index's rows, and the longest walk x the
-   dependent-load latency;
+   dependent-load latency.  Then the global DP kernel
+   (``csrc/global_dp.cu``) on the same batch's rows: every recorded
+   call held against the plain route on the card (tolerance 0), its
+   device counters against the plain route's, and the largest call
+   timed beside ``portbench.roofline.global_dp_bound_ms`` and the plain
+   route's ms;
 15. records: the bam phase's sorted BAM (the main reads aligned on the
    card) through ``BamWriter(CRAM)`` with the reference attached (RR=1)
    and without, ``build_index`` (.crai), ``BamReader`` over each,
@@ -197,11 +202,12 @@ last line is printed):
    per-call wrapper time, as for K1 and K2, beside the earlier layouts'
    times (PERF.md), and each variant's longest lane alone: rows,
    pipeline steps, ns a step), whose launches they report;
-20. one JSON line of all six kernels' numbers, each with its launches
-   on each path it has (``by_path``: K1, K2 and the walk main,
+20. one JSON line of all seven kernels' numbers, each with its launches
+   on each path it has (``by_path``: K1, K2, the global DP and the walk
+   main,
    overflow, long, paired, bam, cli, records, wide, sharded, mesh,
    multihost, the walk 0 on every path over a full SA; K3 mesh; K3-K5
-   bench; all six assembly, where no TPU-kernel counterpart runs), K1's
+   bench; all seven assembly, where no TPU-kernel counterpart runs), K1's
    and K2's long and wide paths with their mean device ms and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -225,8 +231,9 @@ import time
 import numpy as np
 import torch
 
-from seqlib_tpu_torch import bench_sw
+from seqlib_tpu_torch import bench_sw, profiling
 from seqlib_tpu_torch.align import BWAAligner
+from seqlib_tpu_torch.align.device_pipeline import global_and_traceback_plain
 from seqlib_tpu_torch.assembly import BFC, FermiAssembler
 from seqlib_tpu_torch.assembly.bfc import encode_reads
 from seqlib_tpu_torch.core import (FSECONDARY, FSUPPLEMENTARY, FUNMAP,
@@ -317,8 +324,8 @@ K2_OPS_PER_EXT = 32
 P2E_K1_MS = {(3072, 32): [0.3635, 0.4437], (65, 100): [0.6171],
              (80, 100): [0.7021], (256, 32): [0.3643, 0.1231]}
 P2E_K2_MS = {(4096, 16): [1.6698], (4096, 4): [0.5407]}
-# the kernels whose launches each aligner path reports: K1 and K2 on every
-# index, the walk on a loaded one (a sampled SA) only
+# the kernels whose launches each aligner path reports: K1, K2 and the
+# global DP on every index, the walk on a loaded one (a sampled SA) only
 PATH_KERNELS = cuda_lib.MAIN_PATH + ("sa_walk",)
 
 
@@ -495,18 +502,21 @@ def bound_fields(bounds) -> dict:
 # ---------------------------------------------------------------------------
 
 class Recorder:
-    """Wraps the three kernel launchers of the aligner (K1, K2 and the
-    LF walk) to keep each call's inputs and what the kernel returned."""
+    """Wraps the four kernel launchers of the aligner (K1, K2, the LF walk
+    and the global DP) to keep each call's inputs and what the kernel
+    returned."""
 
     def __init__(self):
         self.k1: list = []
         self.k2: list = []
         self.walk: list = []
+        self.gdp: list = []
         self._orig = (sw_cuda.extend_batch_banded_cuda,
-                      fm_cuda.smem_machine_cuda, fm_cuda.sa_walk_cuda)
+                      fm_cuda.smem_machine_cuda, fm_cuda.sa_walk_cuda,
+                      sw_cuda.global_traceback_cuda)
 
     def __enter__(self):
-        o1, o2, o3 = self._orig
+        o1, o2, o3, o4 = self._orig
 
         def k1(*a, **kw):
             args = tuple(x.clone() for x in a[:5])
@@ -527,14 +537,21 @@ class Recorder:
             self.walk.append((fm, ranks.clone(), pos.clone()))
             return pos, steps
 
+        def gdp(q, ql, t, tl, **kw):
+            args = tuple(x.clone() for x in (q, ql, t, tl))
+            out = o4(q, ql, t, tl, **kw)
+            self.gdp.append((args, kw, tuple(v.clone() for v in out)))
+            return out
+
         sw_cuda.extend_batch_banded_cuda = k1
         fm_cuda.smem_machine_cuda = k2
         fm_cuda.sa_walk_cuda = walk
+        sw_cuda.global_traceback_cuda = gdp
         return self
 
     def __exit__(self, *exc):
         (sw_cuda.extend_batch_banded_cuda, fm_cuda.smem_machine_cuda,
-         fm_cuda.sa_walk_cuda) = self._orig
+         fm_cuda.sa_walk_cuda, sw_cuda.global_traceback_cuda) = self._orig
 
 
 def k1_call_kwargs(rec):
@@ -624,7 +641,7 @@ class StageTimer:
         ("seqlib_tpu_torch.align.device_pipeline", None, "extend_chains",
          "extend: K1 (adaptive) + windows"),
         ("seqlib_tpu_torch.align.device_full", None, "global_and_traceback",
-         "global DP + traceback (plain torch)"),
+         "global DP + traceback (kernel)"),
         ("seqlib_tpu_torch.align.aligner", "BWAAligner",
          "_hits_cols_from_full", "host: fetch, MAPQ, columns"),
         ("seqlib_tpu_torch.native", None, "bam_encode_hits",
@@ -640,7 +657,7 @@ class StageTimer:
         ("seqlib_tpu_torch.align.aligner", None, "extend_chains",
          "extend: K1 (adaptive) + windows"),
         ("seqlib_tpu_torch.align.device_pipeline", None,
-         "global_and_traceback", "global DP + traceback (plain torch)"),
+         "global_and_traceback", "global DP + traceback (kernel)"),
         ("seqlib_tpu_torch.align.aligner", "BWAAligner", "_assemble_records",
          "host: records"),
     )
@@ -1552,6 +1569,91 @@ def walk_phase(aln, genome: str, card: str, load_ns: float) -> dict:
         lanes=lanes, lane_steps=lane_steps, longest=longest, capped=capped)
 
 
+def global_dp_phase(aln, genome: str, card: str) -> dict:
+    """The global DP kernel on what one WALK_READS-read batch (the
+    benchmark's batch) hands it on the loaded index: every recorded call
+    and the kernel again against the plain route
+    ``global_and_traceback_plain`` on the same CUDA inputs (score, packed
+    ops and NM, tolerance 0); the tracer's counters of the kernel against
+    the plain route's (DP rows equal, the exact longest walk the plain
+    route's steps before its rounding up to 8); then the batch's largest
+    call timed (device ms a launch over WALK_REPS, ms a call with the
+    wrapper, the plain route's synchronised ms) beside
+    ``portbench.roofline.global_dp_bound_ms`` for the same rows.  Returns
+    the kernel's fields of the ``kernels`` line."""
+    from portbench import roofline
+    t_phase = time.time()
+    batch = simulate_reads(genome, WALK_READS, seed=13, length=READ_BP)
+    with Recorder() as rec:
+        aln.align_batch_bam([s for _, s in batch], [n for n, _ in batch])
+        torch.cuda.synchronize()
+    if not rec.gdp:
+        raise AssertionError("global DP: no call in the batch")
+    err, shapes = 0, []
+    for args, kw, got in rec.gdp:
+        want = global_and_traceback_plain(*args, **kw)
+        again = sw_cuda.global_traceback_cuda(*args, **kw)
+        for g, a, w in zip(got, again, want):
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max()) if w.numel() else 0,
+                      int((a.to(torch.int64) - w.to(torch.int64))
+                          .abs().max()) if w.numel() else 0)
+        shapes.append((tuple(args[0].shape), args[2].shape[1], kw["band"]))
+    if err:
+        raise AssertionError(f"global DP: the kernel differs from the plain "
+                             f"route on the batch's rows ({err})")
+    args, kw, _ = max(rec.gdp, key=lambda g: g[0][0].shape[0])
+    q, ql, t, tl = args
+    profiling.take()
+    with profiling.tracing():
+        sw_cuda.global_traceback_cuda(*args, **kw)
+        torch.cuda.synchronize()
+    kc = profiling.take().counters
+    with profiling.tracing():
+        global_and_traceback_plain(*args, **kw)
+        torch.cuda.synchronize()
+    pc = profiling.take().counters
+    steps, rows = kc["traceback.steps"], kc["global_dp.dp_rows_run"]
+    T = (2 * (q.shape[1] + t.shape[1]) + 7) // 4 * 4
+    if rows != pc["global_dp.dp_rows_run"] \
+            or pc["traceback.steps"] != min(T, (steps + 7) // 8 * 8) \
+            or any(k.startswith(("sync.", "upload.")) for k in kc):
+        raise AssertionError(f"global DP: the kernel's counters {kc} do not "
+                             f"match the plain route's {pc}")
+    ms = device_ms(lambda: sw_cuda.global_traceback_cuda(*args, **kw),
+                   WALK_REPS)
+    ev = cuda_ms(lambda: sw_cuda.global_traceback_cuda(*args, **kw),
+                 WALK_REPS)
+    plain = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        global_and_traceback_plain(*args, **kw)
+        torch.cuda.synchronize()
+        plain.append(1e3 * (time.time() - t0))
+    bound, by = roofline.global_dp_bound_ms(q, t, ql, tl, kw["band"])
+    cells = roofline.global_dp_cells(ql, tl, kw["band"])
+    M = q.shape[0]
+    log(f"global DP: {len(rec.gdp)} call(s) of one {WALK_READS}-read batch "
+        f"on the loaded index (rows, Lq; Lt; band: {shapes}): score, packed "
+        f"ops and NM == the plain route's (tolerance 0); the largest: {M} "
+        f"rows, {rows} DP rows at most, {cells} band cells, the longest walk "
+        f"{steps} steps (plain route: {pc['traceback.steps']}, "
+        f"{pc.get('sync.traceback.live', 0)} device reads) [{card}]")
+    log(f"global DP: {ms:.4f} ms device time a launch ({ev:.3f} ms/call with "
+        f"the wrapper; plain route {', '.join(f'{p:.0f}' for p in plain)} ms "
+        f"on the card); bound {bound:.4f} ms ({by}), {ms / bound:.2f}x; phase "
+        f"{time.time() - t_phase:.1f} s [{card}]")
+    return dict(
+        name="global_dp", route="cuda",
+        source="seqlib_tpu_torch/csrc/global_dp.cu",
+        replaces="none (XLA: seqlib_tpu/ops/sw.py::global_batch and "
+                 "align/device_pipeline.py::global_and_traceback)",
+        max_abs_err=err, ms=ms, event_ms=ev, plain_ms=float(np.mean(plain)),
+        bound_ms=bound, bound_by=by, library_ms=None, rows=M, cells=cells,
+        longest_walk=steps)
+
+
 def write_fasta(path: str, contigs, width: int = 80) -> None:
     with open(path, "w") as fh:
         for name, seq in contigs:
@@ -1582,7 +1684,8 @@ def stream_sam(aln, stream) -> tuple[list, float, float]:
 
 
 def cli_phase(genome: str, reads, pairs, asm_contigs, bam_out: dict,
-              card: str, workdir: str, load_ns: float) -> tuple[dict, dict]:
+              card: str, workdir: str,
+              load_ns: float) -> tuple[dict, dict, dict]:
     """What a user of the command line runs, on the bam phase's
     three-contig reference written to ref.fa, counters reset just before
     and read just after: ``seqtools index ref.fa`` (bwa's five files) ->
@@ -1598,8 +1701,9 @@ def cli_phase(genome: str, reads, pairs, asm_contigs, bam_out: dict,
     the pairs proper; fml's contig is the assembly-local phase's.  And
     loaded against constructed: reads/s in turns, the locate's ms a
     batch and longest walk, the SA tensor's bytes, peak memory.  Last,
-    ``walk_phase`` on the loaded index.  Returns the path's launches and
-    the walk kernel's fields."""
+    ``walk_phase`` and ``global_dp_phase`` on the loaded index.  Returns
+    the path's launches, the walk kernel's fields and the global DP
+    kernel's."""
     from seqlib_tpu_torch import cli
     from seqlib_tpu_torch.align.pairing import mark_supplementary
     t_phase = time.time()
@@ -1773,7 +1877,8 @@ def cli_phase(genome: str, reads, pairs, asm_contigs, bam_out: dict,
     log(f"cli: K1 {launches['sw_extend']}, K2 {launches['smem_machine']} "
         f"and walk {launches['sa_walk']} launches on the path; phase "
         f"{time.time() - t_phase:.1f} s [{card}]")
-    return launches, walk_phase(aln, genome, card, load_ns)
+    return (launches, walk_phase(aln, genome, card, load_ns),
+            global_dp_phase(aln, genome, card))
 
 
 # ---------------------------------------------------------------------------
@@ -3221,7 +3326,8 @@ def main() -> int:
         log(f"  {k:34s} {v:8.1f} ms x{st.calls[k]}")
     profile_batch(aln, b1, card)
 
-    kernels["sa_walk"] = {}      # its fields come from the cli phase
+    kernels["sa_walk"] = {}      # its fields come from the cli phase,
+    kernels["global_dp"] = {}    # and so do these
     for k, v in kernels.items():
         v["launches"] = int(launches[k])
 
@@ -3256,10 +3362,12 @@ def main() -> int:
         asm_launches, asm_contigs = assembly_local_phase(genome, card)
         log(f"assembly-local phase: {time.time() - t0:.1f} s")
         t2 = time.time()
-        cli_launches, walk = cli_phase(genome, reads, pairs, asm_contigs,
-                                       bam_out, card, workdir, load_ns)
+        cli_launches, walk, gdp = cli_phase(genome, reads, pairs,
+                                            asm_contigs, bam_out, card,
+                                            workdir, load_ns)
         del bam_out
         kernels["sa_walk"].update(walk)
+        kernels["global_dp"].update(gdp)
         for k in PATH_KERNELS:
             kernels[k]["by_path"]["cli"] = path_fields(cli_launches[k])
         log(f"cli phase: {time.time() - t2:.1f} s [{card}]")

@@ -6,7 +6,9 @@ kernel K2), SA locate, chaining, and left/right banded extension of
 every kept chain anchor (kernel K1 through the adaptive-band wrapper on
 the GPU) plus the tiered per-seed second extension.
 ``global_and_traceback`` is the banded global DP with an on-device
-traceback walk that emits packed op codes and NM counts.
+traceback walk that emits packed op codes and NM counts: one launch of
+``csrc/global_dp.cu`` on CUDA tensors, the plain route
+``global_and_traceback_plain`` on CPU tensors.
 
 JAX's fixed-shape idioms map as follows: ``.at[].set(mode="drop")`` is
 a scatter into one extra sink row, ``lax.cond``/``while_loop`` are
@@ -22,6 +24,7 @@ from .. import profiling
 from ..ops.fm import DeviceFMIndex, sa_lookup, smem_collect, smem_reseed
 from ..ops.sw import (BIT_EEXT, BIT_FEXT, BIT_MIS, DIR_E, DIR_M,
                       global_batch)
+from ..ops import sw_cuda
 from ..ops.sw_cuda import extend_batch_adaptive
 
 OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
@@ -465,7 +468,27 @@ def global_and_traceback(q, ql, t, tl,
 
     Returns (score int32 [M], packed uint8 [M, Tp/4] step codes in
     reverse walk order, 4 per byte at bits 0/2/4/6 with OP_NONE
-    padding, nm int32 [M]); the direction matrix stays on the device."""
+    padding, nm int32 [M]).  CUDA tensors take one launch of
+    ``csrc/global_dp.cu`` (``sw_cuda.global_traceback_cuda``: no host
+    read, ``traceback.steps`` the exact longest walk); CPU tensors the
+    plain route ``global_and_traceback_plain``, equal to it bit for
+    bit."""
+    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+              match=match, mismatch=mismatch, band=band)
+    if q.is_cuda:
+        return sw_cuda.global_traceback_cuda(q, ql, t, tl, **kw)
+    return global_and_traceback_plain(q, ql, t, tl, **kw)
+
+
+def global_and_traceback_plain(q, ql, t, tl,
+                               o_del: int = 6, e_del: int = 1,
+                               o_ins: int = 6, e_ins: int = 1,
+                               match: int = 1, mismatch: int = 4,
+                               band: int = 208):
+    """``global_and_traceback`` in plain torch on any device: the row loop
+    of ``global_batch``, then a walk of ~40 operations a step that reads
+    the device every 8 steps (``traceback.steps`` rounded up to a
+    multiple of 8); the direction matrix stays on the device."""
     M, Lq = q.shape
     Lt = t.shape[1]
     dev = q.device

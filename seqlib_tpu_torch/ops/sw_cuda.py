@@ -11,11 +11,18 @@ rerun of the rest; it equals ``extend_batch(band=band)``.
 launches K3 from ``csrc/sw_rect.cu`` on CUDA tensors and runs
 ``ops.sw.extend_rect`` on CPU tensors; ``launch_rect`` is the launcher
 shared with K4 and K5 (``ops.sw_variants``).
+
+``global_traceback_cuda`` launches ``csrc/global_dp.cu``: the banded
+global DP and its traceback in one launch, what
+``align.device_pipeline.global_and_traceback`` runs on CUDA tensors (the
+plain route, ``global_batch`` and the torch walk, runs on CPU tensors).
+It replaces no TPU kernel: the JAX package runs that stage in XLA.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,6 +32,9 @@ from .sw import RECT_MAX_LT, check_rect_shape, extend_batch, extend_rect
 
 KERNEL = "sw_extend"
 RECT_LIB = "sw_rect"
+GLOBAL = "global_dp"
+# the tracer's counters of one global DP call, in the kernel's totals order
+GLOBAL_COUNTERS = ("global_dp.dp_rows_run", "traceback.steps")
 
 # which branch each adaptive call took (tests check all three run); moved
 # under cuda_lib's counters' lock
@@ -201,3 +211,73 @@ def launch_rect(entry: str, query, qlen, target, tlen, h0,
     cuda_lib.bump(cuda_lib.LAUNCHES, entry)
     return dict(score=out[0], qle=out[1], tle=out[2], gscore=out[3],
                 gtle=out[4])
+
+
+@functools.lru_cache(maxsize=None)
+def _global_plan(device_index: int, Lq: int, Lt: int) -> tuple:
+    """(slots a thread, chunks a row, slab bytes a row, warps the card
+    holds at once, row-buffer int32 a warp) of ``csrc/global_dp.cu`` at
+    these widths (a host query; call it on the card's own device)."""
+    out = (ctypes.c_longlong * 5)()
+    rc = cuda_lib.load(GLOBAL).global_dp_plan(ctypes.c_int(Lq),
+                                              ctypes.c_int(Lt), out)
+    cuda_lib.check(rc, "global_dp_plan")
+    return tuple(out)
+
+
+def global_traceback_cuda(q, ql, t, tl, o_del: int = 6, e_del: int = 1,
+                          o_ins: int = 6, e_ins: int = 1, match: int = 1,
+                          mismatch: int = 4, band: int = 208):
+    """``global_and_traceback`` in one launch of ``csrc/global_dp.cu`` on
+    CUDA tensors (raises on anything else): (score int32 [M], packed
+    uint8 [M, T/4], nm int32 [M]), bit-equal to the plain route, with no
+    host read.  Counts one launch a call (``cuda_lib.LAUNCHES``).  While
+    the tracer is on, hands the kernel's device totals of
+    ``GLOBAL_COUNTERS`` to ``profiling.count_device``: the most DP rows a
+    row ran (the plain route's ``global_dp.dp_rows_run``) and the exact
+    longest walk (the plain route's ``traceback.steps`` rounds it up to a
+    multiple of 8, or to T).  Codes are uint8, as the aligner makes
+    them."""
+    dev = q.device
+    guard = cuda_lib.on_device("global_traceback_cuda", dev, ql, t, tl)
+    if q.dim() != 2 or t.dim() != 2 or t.shape[0] != q.shape[0] \
+            or q.dtype != torch.uint8 or t.dtype != torch.uint8:
+        raise ValueError("global_traceback_cuda: uint8 codes q [M, Lq] "
+                         "and t [M, Lt]")
+    M, Lq = q.shape
+    Lt = t.shape[1]
+    qb, tb = q.contiguous(), t.contiguous()
+    ql32, tl32 = _lane_args("global_traceback_cuda", dev, M, ql, tl)
+    T = (2 * (Lq + Lt) + 7) // 4 * 4
+    score = torch.empty(M, dtype=torch.int32, device=dev)
+    nm = torch.empty_like(score)
+    packed = torch.empty((M, T // 4), dtype=torch.uint8, device=dev)
+    totals = torch.zeros(len(GLOBAL_COUNTERS), dtype=torch.int64,
+                         device=dev) if profiling.enabled() else None
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    with guard:
+        lib = cuda_lib.load(GLOBAL)
+        warps, slab, buf = 0, None, None
+        if M:
+            _, _, row_bytes, resident, buf_ints = _global_plan(
+                dev.index, Lq, Lt)
+            warps = min(M, resident)
+            slab = torch.empty(warps * Lq * row_bytes, dtype=torch.uint8,
+                               device=dev)
+            buf = torch.empty(warps * buf_ints, dtype=torch.int32,
+                              device=dev) if buf_ints else None
+        rc = lib.global_dp(
+            vp(qb.data_ptr()), vp(ql32.data_ptr()), vp(tb.data_ptr()),
+            vp(tl32.data_ptr()), vp(score.data_ptr()),
+            vp(packed.data_ptr()), vp(nm.data_ptr()),
+            vp(totals.data_ptr() if totals is not None else None),
+            vp(slab.data_ptr() if slab is not None else None),
+            vp(buf.data_ptr() if buf is not None else None),
+            ci(M), ci(Lq), ci(Lt), ci(band), ci(o_del), ci(e_del),
+            ci(o_ins), ci(e_ins), ci(match), ci(mismatch), ci(warps),
+            cuda_lib.stream_ptr(dev))
+        cuda_lib.check(rc, GLOBAL)
+        cuda_lib.bump(cuda_lib.LAUNCHES, GLOBAL)
+        if totals is not None:
+            profiling.count_device(GLOBAL_COUNTERS, totals)
+    return score, packed, nm

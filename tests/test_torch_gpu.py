@@ -20,6 +20,8 @@ import torch
 
 from seqlib_tpu_torch import profiling
 from seqlib_tpu_torch.align import BWAAligner
+from seqlib_tpu_torch.align.device_pipeline import (
+    global_and_traceback, global_and_traceback_plain)
 from seqlib_tpu_torch.align.pairing import align_pairs
 from seqlib_tpu_torch.assembly import BFC, FermiAssembler
 from seqlib_tpu_torch.bench_sw import (RECT_KERNELS, STOP_WIDTHS,
@@ -35,6 +37,7 @@ from seqlib_tpu_torch.ops import cuda_lib, fm_cuda, kmer, sw_cuda
 from seqlib_tpu_torch.ops.fm import (DeviceFMIndex, _smem_machine, sa_lookup,
                                      smem_machine)
 from seqlib_tpu_torch.ops.sw import extend_batch, extend_rect
+from global_dp_rows import global_dp_rows
 from seqlib_tpu_torch.sim import (edge_read_batch, kmer_batch,
                                   kmer_region_reads, make_genome,
                                   make_repeat_genome, make_repeat_reads,
@@ -466,6 +469,107 @@ def test_sa_lookup_full_sa_launches_no_walk(cuda, built_index):
                    for k in profiling.take().counters)
     assert cuda_lib.LAUNCHES["sa_walk"] == n0
     assert torch.equal(pos.cpu(), sa_lookup(fm, ranks))
+
+
+# (M, Lq, Lt, band) of the global DP: the fused path's rows at a typical
+# batch's count, the classic path's narrow and wide bands (Lt_wide + 8),
+# long reads (over 1024 bp: the chunked instance), every register instance
+# (32 S >= Lt + 1 for S = 4, 8, 16), and no rows
+GLOBAL_SHAPES = {
+    "fused": (25_000, 160, 288, 208),
+    "classic": (2048, 150, 278, 208),
+    "wide": (512, 150, 662, 670),
+    "long": (12, 1500, 1628, 208),
+    "long_wide": (6, 1200, 1712, 1720),
+    "s4": (512, 60, 100, 20),
+    "s8": (512, 100, 200, 50),
+    "s16": (256, 200, 450, 100),
+    "empty": (0, 160, 288, 208),
+}
+
+
+@pytest.mark.parametrize("shape", list(GLOBAL_SHAPES))
+def test_global_dp_kernel_equals_plain(cuda, shape):
+    """The global DP kernel against the plain route on the same CUDA
+    inputs (``global_dp_rows``: edited windows, random ones, and the
+    edge rows ql = 0, tl = 0, both, all-N windows, an end cell outside
+    the band): score, packed ops and NM bit-equal, one launch a call.
+    Under the tracer the kernel reads nothing on the host, its
+    dp_rows_run equals the plain route's, and its exact longest walk is
+    the plain route's traceback.steps before the rounding up to 8."""
+    M, Lq, Lt, band = GLOBAL_SHAPES[shape]
+    q, ql, t, tl = (torch.from_numpy(a).to(cuda)
+                    for a in global_dp_rows(M, Lq, Lt, seed=M + Lt,
+                                            band=band))
+    if shape == "fused":
+        ql = ql.to(torch.int64)             # the fused path's length type
+    profiling.take()
+    with profiling.tracing():
+        want = global_and_traceback_plain(q, ql, t, tl, band=band)
+        torch.cuda.synchronize()
+    plain = profiling.take().counters
+    n0 = cuda_lib.LAUNCHES["global_dp"]
+    with profiling.tracing():
+        got = global_and_traceback(q, ql, t, tl, band=band)
+        torch.cuda.synchronize()
+    kern = profiling.take().counters
+    assert cuda_lib.LAUNCHES["global_dp"] == n0 + 1
+    for g, w, name in zip(got, want, ("score", "packed", "nm")):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), (shape, name)
+    assert plain["sync.traceback.live"] >= 1
+    assert not any(k.startswith(("sync.", "upload.")) for k in kern), kern
+    assert kern["global_dp.dp_rows_run"] == plain["global_dp.dp_rows_run"]
+    T = (2 * (Lq + Lt) + 7) // 4 * 4
+    steps = kern["traceback.steps"]
+    assert plain["traceback.steps"] == min(T, (steps + 7) // 8 * 8)
+    if M:
+        assert steps > 0
+    if M and int(ql[4]) + band < Lt:        # row 4 ends outside the band
+        assert int(want[0][4]) < -(1 << 29)
+
+
+def test_global_dp_kernel_codes_past_n_and_penalties(cuda):
+    """Codes past 4 (they match nothing, as N) and other penalties:
+    kernel == plain; codes other than uint8 are refused."""
+    q, ql, t, tl = global_dp_rows(700, 120, 250, seed=4, band=40)
+    q[:50, :6] = 255
+    t[:50, 2:8] = 255
+    t[50:60, :3] = 7
+    kw = dict(o_del=3, e_del=2, o_ins=5, e_ins=3, match=2, mismatch=3,
+              band=40)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, ql, t, tl)]
+    got = global_and_traceback(*args, **kw)
+    want = global_and_traceback_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        global_and_traceback(args[0].to(torch.int8), *args[1:], **kw)
+
+
+def test_main_path_reads_nothing_in_the_global_dp(cuda, genome,
+                                                  loaded_index):
+    """The fused path under the tracer on the card: no traceback or DP-row
+    read (``sync.traceback.live``, ``sync.sw.rows_to_run``), one global
+    DP launch a batch, and the records those of the CPU."""
+    corpus = simulate_reads(genome, 1024, seed=21)
+    seqs, names = [s for _, s in corpus], [n for n, _ in corpus]
+    aln = BWAAligner(loaded_index, device=cuda)
+    aln.align_batch_bam(seqs[:64], names[:64], sam=True)
+    n0 = cuda_lib.LAUNCHES["global_dp"]
+    profiling.take()
+    with profiling.tracing():
+        g = aln.align_batch_bam(seqs, names, sam=True)
+        torch.cuda.synchronize()
+    got = profiling.take().counters
+    assert cuda_lib.LAUNCHES["global_dp"] - n0 >= 1
+    assert "sync.traceback.live" not in got
+    assert "sync.sw.rows_to_run" not in got
+    assert got["sync.global_dp.rows"] == 1
+    assert got["traceback.steps"] > 0 and got["global_dp.dp_rows_run"] > 0
+    c = BWAAligner(loaded_index, device="cpu").align_batch_bam(seqs, names,
+                                                               sam=True)
+    assert g[0] == c[0] and np.array_equal(g[1], c[1])
 
 
 def test_loaded_index_gpu_equals_cpu(cuda, genome, loaded_index):

@@ -13,6 +13,11 @@ tests drive all of its branches and hold it to
 ``extend_batch(band=...)``.
 """
 
+import os
+import subprocess
+import sys
+import textwrap
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,11 +25,15 @@ import torch
 
 from seqlib_tpu.align import device_pipeline as jdp
 from seqlib_tpu.ops import sw as jsw
+from seqlib_tpu_torch import profiling
 from seqlib_tpu_torch.align import device_pipeline as tdp
 from seqlib_tpu_torch.bench_sw import set_k1_edges
 from seqlib_tpu_torch.ops import sw as tsw
-from seqlib_tpu_torch.ops import sw_cuda
+from seqlib_tpu_torch.ops import cuda_lib, sw_cuda
+from global_dp_rows import global_dp_rows
 from test_sw_banded import _scalar_banded
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -265,3 +274,81 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         fm_cuda.smem_machine_cuda(None, q.to(torch.uint8), ql, ql, ql,
                                   ql > 0, 4, 19, 8, 1, 40)
+
+
+@pytest.mark.parametrize("band", [8, 208])
+def test_global_and_traceback_edge_rows_equal_jax(band):
+    """The plain route on the rows the kernel's tests use
+    (``global_dp_rows``: edited and random windows, ql = 0, tl = 0,
+    both, all-N windows, an end cell outside the band) equals the JAX
+    package: score, packed ops and NM."""
+    arrays = global_dp_rows(40, 48, 80, seed=band, band=band)
+    want = jdp.global_and_traceback(*(jnp.asarray(a) for a in arrays),
+                                    band=band)
+    got = tdp.global_and_traceback(*(torch.from_numpy(a) for a in arrays),
+                                   band=band)
+    for a, b, name in zip(want, got, ("score", "ops", "nm")):
+        assert np.array_equal(np.asarray(a), b.numpy()), (band, name)
+    assert int(arrays[1][4]) + band >= 80 or int(got[0][4]) == tsw.NEG
+
+
+def test_global_and_traceback_cpu_takes_the_plain_route():
+    """CPU tensors run the plain route (its device reads and all) and
+    launch, load and build no kernel."""
+    arrays = [torch.from_numpy(a) for a in global_dp_rows(24, 32, 60,
+                                                          seed=3, band=12)]
+    n0 = dict(cuda_lib.LAUNCHES)
+    profiling.take()
+    with profiling.tracing():
+        got = tdp.global_and_traceback(*arrays, band=12)
+    counters = profiling.take().counters
+    want = tdp.global_and_traceback_plain(*arrays, band=12)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert cuda_lib.LAUNCHES == n0
+    assert "global_dp" not in cuda_lib._libs
+    assert counters["sync.traceback.live"] >= 1
+    assert counters["sync.sw.rows_to_run"] == 1
+    assert counters["traceback.steps"] % 8 == 0
+
+
+def test_global_dp_launcher_refuses_cpu_tensors():
+    """The global DP kernel's launcher never runs a CPU tensor."""
+    arrays = [torch.from_numpy(a) for a in global_dp_rows(4, 16, 24)]
+    n0 = cuda_lib.LAUNCHES["global_dp"]
+    with pytest.raises(ValueError):
+        sw_cuda.global_traceback_cuda(*arrays, band=8)
+    assert cuda_lib.LAUNCHES["global_dp"] == n0
+
+
+def test_global_dp_kernel_module_imports_without_a_gpu():
+    """Without nvcc or a card the launcher's modules import, the kernel's
+    library is declared (its source beside the others) but not built,
+    and the aligner's dispatch runs the plain route."""
+    code = textwrap.dedent("""
+        import os, torch
+        from seqlib_tpu_torch.ops import cuda_lib, sw_cuda
+        from seqlib_tpu_torch.align import device_pipeline as dp
+        assert not torch.cuda.is_available()
+        assert "global_dp" in cuda_lib.MAIN_PATH
+        assert set(cuda_lib.SIGNATURES["global_dp"]) == {
+            "global_dp", "global_dp_plan"}
+        assert os.path.exists(os.path.join(cuda_lib.CSRC, "global_dp.cu"))
+        g = torch.Generator().manual_seed(0)
+        q = torch.randint(0, 5, (6, 20), generator=g, dtype=torch.uint8)
+        t = torch.randint(0, 5, (6, 30), generator=g, dtype=torch.uint8)
+        ql = torch.randint(0, 21, (6,), generator=g)
+        s, p, n = dp.global_and_traceback(q, ql, t, ql + 5, band=8)
+        assert s.shape == (6,) and p.shape == (6, 26) and n.shape == (6,)
+        assert cuda_lib._libs == {} and cuda_lib.LAUNCHES["global_dp"] == 0
+        print("ok")
+    """)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PATH=os.pathsep.join(p for p in os.environ.get("PATH", "")
+                                    .split(os.pathsep)
+                                    if not os.path.exists(
+                                        os.path.join(p, "nvcc"))))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
