@@ -17,6 +17,13 @@ uncompacted re-extension, host dedup and primary marking, then
 ``_regions_to_hits``) and is serialised through the object API, as the
 JAX package does; ``stats["fused_overflow_fallback"]`` counts it.
 
+Every route builds one hit format, the columns ``native.bam_encode_hits``
+takes: ``_host_cols`` from the fused program's outputs and
+``_regions_to_hits`` from region lists (classic, long, sharded, rescued
+mates), both through ``_hit_cols`` (contig, clips, ``approx_mapq``) and
+``_window_dp`` (the host global DP); ``_cols_to_hit_dicts`` turns the
+columns into the object API's per-read dicts.
+
 ``align_batch`` (and so ``align_sequence``) sends a batch holding a read
 longer than ``BWAAligner.LONG_READ_BP`` (a class attribute, read through
 the instance, so a subclass or an instance may move the cut-over) down
@@ -56,7 +63,6 @@ from __future__ import annotations
 import collections
 import concurrent.futures as _fut
 import itertools
-import math
 import threading
 from dataclasses import dataclass
 
@@ -73,11 +79,13 @@ from ..device import resolve_device, run_on_devices
 from ..index.pack import both_strands
 from ..io.bam import encode_record
 from ..ops.fm import DeviceFMIndex
-from .device_full import (FLAG_EMIT, FLAG_OVER, FLAG_PERFECT, FLAG_WIDE,
-                          NFIELD, _hash64, align_full)
+from .device_full import (F_DPROW, F_FLAGS, F_QB, F_QE, F_RB, F_RE,
+                          F_SCORE, F_SEC, F_SUB, F_SUBN, FLAG_EMIT,
+                          FLAG_OVER, FLAG_PERFECT, FLAG_WIDE, NFIELD,
+                          _hash64, align_full)
 from .chain import chain_batch
-from .device_pipeline import (ESC_SLOTS, dp_rows, extend_chains,
-                              global_and_traceback_packed, seed_and_locate,
+from .device_pipeline import (ESC_SLOTS, dp_rows, dp_widths, extend_chains,
+                              global_and_traceback, seed_and_locate,
                               seed_chain_extend)
 from .options import AlignerOptions
 
@@ -86,9 +94,6 @@ MAX_OCC_LOCATE = 16     # occurrences located per seed
 MAX_CHAINS = 4          # chains extended per read
 REGION_SLOTS = MAX_CHAINS + ESC_SLOTS
 MAX_REGS = 8            # alignment regions kept per read (classic path)
-# the global DP's direction matrix is M x Lq x (Lt + 1) bytes: regions go
-# through it in groups of at most this many bytes (rows are independent)
-GLOBAL_DP_BYTES = 4 << 30
 
 
 class FusedOverflowError(RuntimeError):
@@ -148,16 +153,6 @@ def _unpack_ops(packed: np.ndarray) -> np.ndarray:
     return out
 
 
-def _ops_to_cigars_batch(ops: np.ndarray, n_rows: int
-                         ) -> list[list[tuple[str, int]]]:
-    """Run-length decode traceback codes (reverse walk order, OP_NONE = 3
-    padding) into per-row CIGAR lists in forward 2L order."""
-    out: list[list[tuple[str, int]]] = [[] for _ in range(n_rows)]
-    for r, o, ln in zip(*(a.tolist() for a in _ops_to_runs(ops, n_rows))):
-        out[r].append(("MDI"[o], ln))
-    return out
-
-
 def _ops_to_runs(ops: np.ndarray, n_rows: int):
     """Run-length decode traceback codes into (run_rows, run_ops,
     run_lens), rows ascending, runs in forward 2L order (0=M 1=D 2=I)."""
@@ -175,14 +170,53 @@ def _ops_to_runs(ops: np.ndarray, n_rows: int):
             vals[starts].astype(np.uint8), lens.astype(np.int32))
 
 
+def _run_spans(run_rows: np.ndarray, d: np.ndarray):
+    """First run (int64) and run count (int32) of each DP row in ``d``,
+    over ``_ops_to_runs``' ascending ``run_rows``."""
+    off = np.searchsorted(run_rows, d).astype(np.int64)
+    cnt = np.searchsorted(run_rows, d, side="right") - off
+    return off, cnt.astype(np.int32)
+
+
+def _windows(seq: np.ndarray, start: np.ndarray, n: np.ndarray,
+             width: int) -> np.ndarray:
+    """``seq[start:start + n]`` of each row, padded with code 4 to
+    ``width`` codes: uint8 [rows, width]."""
+    j = np.arange(width)
+    out = seq[np.minimum(start[:, None] + j, seq.size - 1)]
+    out[j >= n[:, None]] = 4
+    return out
+
+
+def approx_mapq(opt: AlignerOptions, score, sub, sub_n, length, frac_rep):
+    """bwa's mem_approx_mapq_se in float64, over arrays of regions:
+    ``sub`` the best suboptimal score (0 for none: min_seed_len * a is
+    taken), ``sub_n`` the suboptimals near the score, ``length``
+    max(query span, target span), ``frac_rep`` the read's repeat
+    fraction.  bwa's csub is never set here, so max(sub, csub) is sub."""
+    sub = np.where(sub > 0, sub, opt.min_seed_len * opt.a).astype(np.float64)
+    length = np.maximum(length, 1).astype(np.float64)
+    ident = 1.0 - (length * opt.a - score) / (opt.a + opt.b) / length
+    tmp = np.where(length < opt.mapQ_coef_len, 1.0,
+                   opt.mapQ_coef_fac / np.log(np.maximum(length, 2.0)))
+    tmp = tmp * ident * ident
+    mq = (6.02 * (score - sub) / opt.a * tmp * tmp + 0.499).astype(np.int64)
+    mq -= np.where(sub_n > 0,
+                   (4.343 * np.log(sub_n + 1) + 0.499).astype(np.int64), 0)
+    mq = np.clip(mq, 0, 60)
+    mq = (mq * (1.0 - frac_rep) + 0.499).astype(np.int64)
+    return np.where(sub >= score, 0, mq)
+
+
 class _Slices(list):
     """Per-slice results of one batch split over a mesh, in entry order."""
 
 
-def _merge_cols(parts: list[dict], rows: int) -> dict:
+def _merge_cols(parts: list[dict], rows: int = 0) -> dict:
     """Columnar hits of consecutive ``rows``-read slices -> one batch's:
-    read indices offset by each slice's first row, CIGAR run offsets by
-    the runs of the slices before it."""
+    read indices offset by each slice's first row (not at all with
+    ``rows`` 0: parts of the same reads), CIGAR run offsets by the runs
+    of the parts before it."""
     out = {}
     for k in parts[0]:
         out[k] = np.concatenate([c[k] for c in parts])
@@ -197,12 +231,13 @@ def _merge_cols(parts: list[dict], rows: int) -> dict:
     return out
 
 
-def _filter_cols(cols: dict, mask: np.ndarray) -> dict:
-    """Keep only hits selected by ``mask`` (run arrays stay shared)."""
+def _take_cols(cols: dict, sel: np.ndarray) -> dict:
+    """The hits ``sel`` picks (a mask, or indices in their order); the
+    run arrays stay shared."""
     out = dict(cols)
     for k, v in cols.items():
         if k not in ("run_ops", "run_lens"):
-            out[k] = v[mask]
+            out[k] = v[sel]
     return out
 
 
@@ -500,7 +535,8 @@ class BWAAligner:
         regions = self._collect_regions_long(enc, lens)[:B]
         if keep_sec_frac < 0.0 or keep_sec_frac > 1.0:
             regions = [[r for r in rs if r.secondary < 0] for rs in regions]
-        hits = self._regions_to_hits(enc, lens, regions)
+        hits = self._cols_to_hit_dicts(
+            self._regions_to_hits(enc, lens, regions), B)
         return [self._assemble_records(seqs[b], names[b], hits[b], hardclip,
                                        keep_sec_frac, max_secondary)
                 for b in range(B)]
@@ -563,151 +599,102 @@ class BWAAligner:
             self._count(regs_truncated=1)
         return out[:MAX_REGS]
 
-    def _mapq(self, r: AlnReg) -> int:
-        """bwa's mem_approx_mapq_se, float64."""
-        opt = self.options
-        sub = r.sub if r.sub else opt.min_seed_len * opt.a
-        sub = max(sub, r.csub)
-        if sub >= r.score:
-            return 0
-        length = max(r.qe - r.qb, r.re - r.rb)
-        identity = 1.0 - float(length * opt.a - r.score) \
-            / (opt.a + opt.b) / length
-        if r.score == 0:
-            mapq = 0
-        else:
-            tmp = 1.0 if length < opt.mapQ_coef_len \
-                else opt.mapQ_coef_fac / math.log(length)
-            tmp *= identity * identity
-            mapq = int(6.02 * (r.score - sub) / opt.a * tmp * tmp + 0.499)
-        if r.sub_n > 0:
-            mapq -= int(4.343 * math.log(r.sub_n + 1) + 0.499)
-        mapq = min(mapq, 60)
-        mapq = max(mapq, 0)
-        return int(mapq * (1.0 - r.frac_rep) + 0.499)
+    def _in_wide_window(self, Lq: int, qspan, tspan):
+        """The wide window's rule: a region whose query span passes the
+        read width, or whose target span the wide window (``dp_widths``),
+        is dropped, and counted in ``regions_dropped_wide``."""
+        ok = (qspan <= Lq) & (tspan <= dp_widths(Lq, self.options.w)[1])
+        self._count(regions_dropped_wide=(~ok).sum())
+        return ok
 
     def _regions_to_hits(self, enc, lens, regions):
-        """Global-align every region with score >= T; per-read hit dicts."""
+        """Columnar hits (``_host_cols``' format) of per-read region
+        lists: every region with score >= T inside the wide window, in
+        its read's list order (``slot`` its index there).  An exact match
+        (score = span * a, equal spans, equal bases) is one M run with NM
+        0; the others go through the host global DP, in the narrow
+        window (split over a mesh) or the wide one."""
         opt = self.options
-        flat = [(b, r) for b, rs in enumerate(regions) for r in rs
-                if r.score >= opt.T]
-        hits_per_read: list[list[dict]] = [[] for _ in range(len(regions))]
-        if not flat:
-            return hits_per_read
-        # query bucket = read length; a narrow target bucket (deletions up
-        # to 128 bp) and a wide one (up to 512 bp); longer spans are
-        # dropped and counted
+        flat = [(b, k, r) for b, rs in enumerate(regions)
+                for k, r in enumerate(rs) if r.score >= opt.T]
+        read = np.array([b for b, _, _ in flat], np.int64)
+        slot = np.array([k for _, k, _ in flat], np.int64)
+        f = np.array([(r.qb, r.qe, r.rb, r.re, r.score, r.sub, r.sub_n,
+                       r.secondary) for _, _, r in flat],
+                     np.int64).reshape(-1, F_SEC + 1)
+        frac_rep = np.array([r.frac_rep for _, _, r in flat], np.float64)
         Lq = enc.shape[1]
-        Lt = Lq + min(2 * opt.w, 128)
-        Lt_wide = Lq + 512
-        kept = []
-        for b, r in flat:
-            span_t = r.re - r.rb
-            if r.qe - r.qb <= Lq and span_t <= Lt_wide:
-                kept.append((b, r))
-                if span_t > Lt:
-                    self._count(regions_widened=1)
-            else:
-                self._count(regions_dropped_wide=1)
-        flat = kept
-        if not flat:
-            return hits_per_read
-        # an exact match (score = span * a, equal spans, equal bases) is
-        # one M run with NM 0 and needs no global DP
-        perfect = np.zeros(len(flat), dtype=bool)
-        for m, (b, r) in enumerate(flat):
-            span = r.qe - r.qb
-            if (r.score == span * opt.a and r.re - r.rb == span
-                    and np.array_equal(enc[b, r.qb:r.qe],
-                                       self.text[r.rb:r.re])):
-                perfect[m] = True
-        cigars: dict[int, list[tuple[str, int]]] = {}
-        nms_by_row: dict[int, int] = {}
-        for m in np.flatnonzero(perfect):
-            b, r = flat[m]
-            cigars[m] = [("M", r.qe - r.qb)]
-            nms_by_row[m] = 0
-        spans = np.array([r.re - r.rb for _, r in flat], np.int64)
-        narrow = np.flatnonzero(~perfect & (spans <= Lt))
-        wide = np.flatnonzero(~perfect & (spans > Lt))
-        # the narrow-band rows split over a mesh; wide-band rows stay on
-        # the first device, as in the JAX package
-        for rows_all, width, band, split in (
-                (narrow, Lt, 2 * opt.w + 8, True),
-                (wide, Lt_wide, Lt_wide + 8, False)):
-            group = max(1, GLOBAL_DP_BYTES // (Lq * (width + 1)))
-            for g in range(0, rows_all.size, group):
-                dev_rows = rows_all[g:g + group]
-                M = dev_rows.size
-                q = np.full((M, Lq), 4, np.uint8)
-                t = np.full((M, width), 4, np.uint8)
-                ql = np.zeros(M, np.int32)
-                tl = np.zeros(M, np.int32)
-                for k, m in enumerate(dev_rows):
-                    b, r = flat[m]
-                    ql[k] = r.qe - r.qb
-                    tl[k] = r.re - r.rb
-                    q[k, :ql[k]] = enc[b, r.qb:r.qe]
-                    t[k, :tl[k]] = self.text[r.rb:r.re]
-                snm, packed = self._global_dp(
-                    q, ql, t, tl, band, split)
-                nms = snm[:, 1]
-                dev_cigs = _ops_to_cigars_batch(_unpack_ops(packed), M)
-                for k, m in enumerate(dev_rows):
-                    cigars[m] = dev_cigs[k]
-                    nms_by_row[m] = int(nms[k])
+        Lt, Lt_wide = dp_widths(Lq, opt.w)
+        qspan, tspan = f[:, F_QE] - f[:, F_QB], f[:, F_RE] - f[:, F_RB]
+        ok = self._in_wide_window(Lq, qspan, tspan)
+        self._count(regions_widened=(ok & (tspan > Lt)).sum())
+        read, slot, f, frac_rep, qspan, tspan = (
+            x[ok] for x in (read, slot, f, frac_rep, qspan, tspan))
+        rows = np.column_stack([read, f[:, F_QB:F_RE + 1]])
+        cand = np.flatnonzero((f[:, F_SCORE] == qspan * opt.a)
+                              & (tspan == qspan))
+        perfect = np.zeros(read.size, bool)
+        perfect[cand] = (
+            _windows(enc.reshape(-1), read[cand] * Lq + f[cand, F_QB],
+                     qspan[cand], Lq)
+            == _windows(self.text, f[cand, F_RB], tspan[cand], Lq)).all(1)
+        nm = np.zeros(read.size, np.int32)
+        cig_off = np.zeros(read.size, np.int64)
+        cig_n = np.zeros(read.size, np.int32)
+        run_ops, run_lens = [np.zeros(0, np.uint8)], [np.zeros(0, np.int32)]
+        for sel, width, band, split in (
+                (~perfect & (tspan <= Lt), Lt, 2 * opt.w + 8, True),
+                (~perfect & (tspan > Lt), Lt_wide, Lt_wide + 8, False)):
+            idx = np.flatnonzero(sel)
+            nm[idx], (rr, ro, rl) = self._window_dp(enc, rows[idx], width,
+                                                    band, split)
+            off, cig_n[idx] = _run_spans(rr, np.arange(idx.size))
+            cig_off[idx] = off + sum(x.size for x in run_ops)
+            run_ops.append(ro)
+            run_lens.append(rl)
+        n_regs = np.array([len(rs) for rs in regions], np.int64)
+        return self._hit_cols(
+            lens, read, slot, f, frac_rep, n_regs[read], nm, cig_off, cig_n,
+            np.where(perfect, qspan, 0), np.concatenate(run_ops),
+            np.concatenate(run_lens))
 
-        l_pac = self.index.l_pac
-        # region-list index per read: hit['sec'] points into it (XA)
-        slot_of = [{id(r): k for k, r in enumerate(rs)} for rs in regions]
-        for m, (b, r) in enumerate(flat):
-            is_rev = r.rb >= l_pac
-            L = int(lens[b])
-            if is_rev:
-                cig_sam = list(reversed(cigars[m]))
-                clip5, clip3 = L - r.qe, r.qb
-                pos2l = 2 * l_pac - r.re
-            else:
-                cig_sam = cigars[m]
-                clip5, clip3 = r.qb, L - r.qe
-                pos2l = r.rb
-            rid, pos = self.index.pos_to_ref(pos2l)
-            # a region crossing a contig boundary is dropped
-            if pos + (r.re - r.rb) > self._ann_lens[rid]:
-                continue
-            full = ([("N", clip5)] if clip5 else []) + cig_sam \
-                + ([("N", clip3)] if clip3 else [])
-            mapq = self._mapq(r) if r.secondary < 0 else 0
-            hits_per_read[b].append(dict(
-                rid=rid, pos=pos, is_rev=is_rev, score=r.score,
-                mapq=mapq, secondary=r.secondary >= 0,
-                cigar=full, nm=nms_by_row[m], n_regs=len(regions[b]),
-                slot=slot_of[b].get(id(r), -1), sec=r.secondary))
-        return hits_per_read
-
-    def _global_dp(self, q, ql, t, tl, band: int, split: bool):
-        """``global_and_traceback_packed`` of host rows -> (snm, packed) on
-        the host; with ``split`` on a mesh the rows are cut into one
-        contiguous piece per entry, each run on the entry's device at
-        once (rows are independent)."""
+    def _window_dp(self, enc, rows, width: int, band: int,
+                   split: bool = False):
+        """The host global DP of region windows: ``rows`` int64 [M, 5] of
+        (read, qb, qe, rb, re) -> each row's NM (int32 [M]) and its CIGAR
+        runs (``_ops_to_runs``).  Query windows are the read's width,
+        target windows ``width`` codes.  With ``split`` on a mesh the rows
+        are cut into one contiguous piece per entry, each run on the
+        entry's device at once (rows are independent)."""
+        M = rows.shape[0]
+        if not M:
+            return np.zeros(0, np.int32), _ops_to_runs(
+                np.zeros((0, 0), np.uint8), 0)
+        b, qb, qe, rb, re = rows.T
+        Lq = enc.shape[1]
+        args = (_windows(enc.reshape(-1), b * Lq + qb, qe - qb, Lq),
+                (qe - qb).astype(np.int32),
+                _windows(self.text, rb, re - rb, width),
+                (re - rb).astype(np.int32))
         opt = self.options
         kw = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
                   e_ins=opt.e_ins, match=opt.a, mismatch=opt.b, band=band)
 
-        def run(rows, dev):
-            snm, packed = global_and_traceback_packed(
-                *(torch.from_numpy(a[rows]).to(dev) for a in (q, ql, t, tl)),
-                **kw)
-            return snm.cpu().numpy(), packed.cpu().numpy()
+        def run(sel, dev):
+            _, packed, nm = global_and_traceback(
+                *(torch.from_numpy(a[sel]).to(dev) for a in args), **kw)
+            return nm.cpu().numpy(), packed.cpu().numpy()
 
         if not split or self.mesh is None:
-            return run(slice(None), self.device)
-        pieces = np.array_split(np.arange(q.shape[0]), self.n_shards)
-        groups = [(d, [lambda r=r, d=d: run(r, d)])
-                  for r, d in zip(pieces, self.mesh.devices) if r.size]
-        outs = [g[0] for g in run_on_devices(groups)]
-        return (np.concatenate([o[0] for o in outs]),
-                np.concatenate([o[1] for o in outs]))
+            nm, packed = run(slice(None), self.device)
+        else:
+            pieces = np.array_split(np.arange(M), self.n_shards)
+            groups = [(d, [lambda r=r, d=d: run(r, d)])
+                      for r, d in zip(pieces, self.mesh.devices) if r.size]
+            outs = [g[0] for g in run_on_devices(groups)]
+            nm = np.concatenate([o[0] for o in outs])
+            packed = np.concatenate([o[1] for o in outs])
+        return nm, _ops_to_runs(_unpack_ops(packed), M)
 
     # ------------------------------------------------------------------
     # host: MAPQ, contig resolution, columnar hits
@@ -742,9 +729,12 @@ class BWAAligner:
             return self._host_cols(enc, lens, regions, snm, packed)
 
     def _host_cols(self, enc, lens, regions, snm, packed):
-        """``_slice_cols`` on the outputs fetched to the host."""
+        """``_slice_cols`` on the outputs fetched to the host: the hits of
+        the device's global-DP rows and exact matches, then, after their
+        read's other hits, the wide and overflowed regions (FLAG_WIDE,
+        FLAG_OVER) through the host global DP in the wide window."""
         opt = self.options
-        B = enc.shape[0]
+        B, Lq = enc.shape
         C = REGION_SLOTS
         fields = regions[:, :C * NFIELD].reshape(B, C, NFIELD) \
             .astype(np.int64)
@@ -760,143 +750,83 @@ class BWAAligner:
         n_dp = int(regions[0, extra0 + 5]) if B else 0
         run_rows, run_ops, run_lens = _ops_to_runs(_unpack_ops(packed), n_dp)
 
-        # host global pass for wide/overflow regions (rare)
-        flags = fields[:, :, 8]
-        live = (flags & FLAG_EMIT) != 0
-        scoref = fields[:, :, 4]
-        fb_rows = []
-        for b, j in zip(*np.nonzero(live & (scoref >= opt.T)
-                                    & ((flags & (FLAG_WIDE | FLAG_OVER))
-                                       != 0))):
-            fb_rows.append((b, j))
-            if flags[b, j] & FLAG_WIDE:
-                self._count(regions_widened=1)
-        keep_fb: list[tuple] = []
-        fb_nm = np.zeros(0, np.int32)
-        if fb_rows:
-            Lq = enc.shape[1]
-            Lt_wide = Lq + 512
-            for b, j in fb_rows:
-                if fields[b, j, 1] - fields[b, j, 0] <= Lq \
-                        and fields[b, j, 3] - fields[b, j, 2] <= Lt_wide:
-                    keep_fb.append((b, j))
-                else:
-                    self._count(regions_dropped_wide=1)
-            if keep_fb:
-                M = _bucket(len(keep_fb))
-                q = np.full((M, Lq), 4, np.uint8)
-                t = np.full((M, Lt_wide), 4, np.uint8)
-                ql = np.zeros(M, np.int32)
-                tl = np.zeros(M, np.int32)
-                for k, (b, j) in enumerate(keep_fb):
-                    qb, qe, rb, re = fields[b, j, :4]
-                    ql[k] = qe - qb
-                    tl[k] = re - rb
-                    q[k, :ql[k]] = enc[b, qb:qe]
-                    t[k, :tl[k]] = self.text[rb:re]
-                snm2, packed2 = self._global_dp(q, ql, t, tl, Lt_wide + 8,
-                                                split=False)
-                fb_nm = snm2[:len(keep_fb), 1].astype(np.int32)
-                fb_rr, fb_ro, fb_rl = _ops_to_runs(_unpack_ops(packed2),
-                                                   len(keep_fb))
-                run_rows = np.concatenate([run_rows, fb_rr + n_dp])
-                run_ops = np.concatenate([run_ops, fb_ro])
-                run_lens = np.concatenate([run_lens, fb_rl])
+        flags = fields[:, :, F_FLAGS]
+        emit = ((flags & FLAG_EMIT) != 0) & (fields[:, :, F_SCORE] >= opt.T)
+        dprow = fields[:, :, F_DPROW]
+        perfect = (flags & FLAG_PERFECT) != 0
+        b_m, j_m = np.nonzero(emit & ((dprow >= 0) | perfect))
+        perf_m = perfect[b_m, j_m]
+        d_m = np.where(perf_m, 0, dprow[b_m, j_m])
+        off_m, cnt_m = _run_spans(run_rows, d_m)
+        nm_m = np.where(perf_m, 0, snm[d_m, 1])
+        mlen_m = np.where(perf_m, fields[b_m, j_m, F_QE]
+                          - fields[b_m, j_m, F_QB], 0)
 
+        fb = emit & ((flags & (FLAG_WIDE | FLAG_OVER)) != 0)
+        self._count(regions_widened=(fb & ((flags & FLAG_WIDE) != 0)).sum())
+        b_f, j_f = np.nonzero(fb)
+        f_f = fields[b_f, j_f]
+        ok = self._in_wide_window(Lq, f_f[:, F_QE] - f_f[:, F_QB],
+                                  f_f[:, F_RE] - f_f[:, F_RB])
+        b_f, j_f, f_f = b_f[ok], j_f[ok], f_f[ok]
+        Lt_wide = dp_widths(Lq, opt.w)[1]
+        nm_f, (rr, ro, rl) = self._window_dp(
+            enc, np.column_stack([b_f, f_f[:, F_QB:F_RE + 1]]), Lt_wide,
+            Lt_wide + 8)
+        off_f, cnt_f = _run_spans(rr, np.arange(b_f.size))
+
+        b = np.concatenate([b_m, b_f])
+        j = np.concatenate([j_m, j_f])
+        frac_rep = rep_cov.astype(np.float64) / np.maximum(lens, 1)[:B]
+        return self._hit_cols(
+            lens, b, j, fields[b, j], frac_rep[b], n_regs[b],
+            np.concatenate([nm_m, nm_f]),
+            np.concatenate([np.where(perf_m, 0, off_m),
+                            off_f + run_ops.size]),
+            np.concatenate([np.where(perf_m, 0, cnt_m), cnt_f]),
+            np.concatenate([mlen_m, np.zeros(b_f.size, np.int64)]),
+            np.concatenate([run_ops, ro]), np.concatenate([run_lens, rl]))
+
+    def _hit_cols(self, lens, read, slot, f, frac_rep, n_regs, nm, cig_off,
+                  cig_n, match_len, run_ops, run_lens):
+        """Per-hit arrays -> the columnar hits ``native.bam_encode_hits``
+        takes: each hit's contig, position and clips (a region across a
+        contig's end is dropped) and its MAPQ (0 for a secondary), grouped
+        by read, in the given order within a read.  ``f`` holds each
+        hit's region fields F_QB..F_SEC (``device_full``'s layout);
+        ``cig_off``/``cig_n`` index ``run_ops``/``run_lens``, and a hit
+        with no runs is one M run of ``match_len``."""
+        qb, qe = f[:, F_QB], f[:, F_QE]
+        rb, re = f[:, F_RB], f[:, F_RE]
+        score, sec = f[:, F_SCORE], f[:, F_SEC]
         l_pac = self.index.l_pac
-        qb_a = fields[:, :, 0]; qe_a = fields[:, :, 1]
-        rb_a = fields[:, :, 2]; re_a = fields[:, :, 3]
-        sc_a = fields[:, :, 4]
-        emit = live & (sc_a >= opt.T)
-        dprow_a = fields[:, :, 9]
-        has_cig = (dprow_a >= 0) | ((flags & FLAG_PERFECT) != 0)
-        is_rev = rb_a >= l_pac
-        L_a = lens[:, None].astype(np.int64)
-        clip5 = np.where(is_rev, L_a - qe_a, qb_a)
-        clip3 = np.where(is_rev, qb_a, L_a - qe_a)
-        pos2l = np.where(is_rev, 2 * l_pac - re_a, rb_a)
-        offs = self._ann_offs
-        rid_a = np.searchsorted(offs, pos2l, side="right") - 1
-        pos_a = pos2l - offs[rid_a]
-        in_contig = pos_a + (re_a - rb_a) <= self._ann_lens[rid_a]
-        sec_mask = fields[:, :, 7] >= 0
-        # float64 mem_approx_mapq_se
-        sub_a2 = np.where(fields[:, :, 5] > 0, fields[:, :, 5],
-                          opt.min_seed_len * opt.a).astype(np.float64)
-        length = np.maximum(qe_a - qb_a, re_a - rb_a).astype(np.float64)
-        length = np.maximum(length, 1.0)
-        ident = 1.0 - (length * opt.a - sc_a) / (opt.a + opt.b) / length
-        tmp = np.where(length < opt.mapQ_coef_len, 1.0,
-                       opt.mapQ_coef_fac / np.log(np.maximum(length, 2.0)))
-        tmp = tmp * ident * ident
-        mq = (6.02 * (sc_a - sub_a2) / opt.a * tmp * tmp
-              + 0.499).astype(np.int64)
-        subn_f = fields[:, :, 6]
-        mq = mq - np.where(subn_f > 0,
-                           (4.343 * np.log(subn_f + 1) + 0.499)
-                           .astype(np.int64), 0)
-        mq = np.clip(mq, 0, 60)
-        frac = rep_cov.astype(np.float64) / np.maximum(lens, 1)[:B]
-        mq = (mq * (1.0 - frac[:, None]) + 0.499).astype(np.int64)
-        mq = np.where(sub_a2 >= sc_a, 0, mq)
-        mq = np.where(sec_mask, 0, mq)
-
-        # ---- columnar hit assembly ------------------------------------
-        b_m, j_m = np.nonzero(emit & has_cig & in_contig)
-        perf_m = (flags[b_m, j_m] & FLAG_PERFECT) != 0
-        d_m = np.where(perf_m, 0, dprow_a[b_m, j_m]).astype(np.int64)
-        if run_rows.size:
-            off_m = np.searchsorted(run_rows, d_m).astype(np.int64)
-            cnt_m = (np.searchsorted(run_rows, d_m, side="right")
-                     - off_m).astype(np.int32)
-        else:
-            off_m = np.zeros(d_m.size, np.int64)
-            cnt_m = np.zeros(d_m.size, np.int32)
-        off_m = np.where(perf_m, 0, off_m)
-        cnt_m = np.where(perf_m, 0, cnt_m).astype(np.int32)
-        if n_dp:
-            nm_m = np.where(perf_m, 0, snm[np.clip(d_m, 0, n_dp - 1), 1]
-                            ).astype(np.int32)
-        else:
-            nm_m = np.zeros(d_m.size, np.int32)
-        mlen_m = np.where(perf_m, qe_a[b_m, j_m] - qb_a[b_m, j_m],
-                          0).astype(np.int32)
-        # fallback-path regions come after the main slots of their read
-        fb_b, fb_j, fb_off, fb_cnt, fb_nm_k = [], [], [], [], []
-        for k, (b, j) in enumerate(keep_fb):
-            if not in_contig[b, j]:
-                continue
-            d = n_dp + k
-            o = int(np.searchsorted(run_rows, d))
-            e = int(np.searchsorted(run_rows, d, side="right"))
-            fb_b.append(b); fb_j.append(j)
-            fb_off.append(o); fb_cnt.append(e - o)
-            fb_nm_k.append(int(fb_nm[k]))
-        ab = np.concatenate([b_m, np.array(fb_b, np.int64)]).astype(np.int64)
-        aj = np.concatenate([j_m, np.array(fb_j, np.int64)]).astype(np.int64)
-        off_all = np.concatenate([off_m, np.array(fb_off, np.int64)])
-        cnt_all = np.concatenate([cnt_m, np.array(fb_cnt, np.int32)])
-        nm_all = np.concatenate([nm_m, np.array(fb_nm_k, np.int32)])
-        mlen_all = np.concatenate([mlen_m, np.zeros(len(fb_b), np.int32)])
-        order = np.argsort(ab, kind="stable")
-        ab, aj = ab[order], aj[order]
+        is_rev = rb >= l_pac
+        L = lens[read].astype(np.int64)
+        pos2l = np.where(is_rev, 2 * l_pac - re, rb)
+        rid = np.searchsorted(self._ann_offs, pos2l, side="right") - 1
+        pos = pos2l - self._ann_offs[rid]
+        mapq = np.where(sec >= 0, 0, approx_mapq(
+            self.options, score, f[:, F_SUB], f[:, F_SUBN],
+            np.maximum(qe - qb, re - rb), frac_rep))
+        keep = np.flatnonzero(pos + (re - rb) <= self._ann_lens[rid])
+        o = keep[np.argsort(read[keep], kind="stable")]
         return dict(
-            read_idx=ab.astype(np.int32),
-            rid=rid_a[ab, aj].astype(np.int32),
-            pos=pos_a[ab, aj].astype(np.int32),
-            is_rev=is_rev[ab, aj].astype(np.uint8),
-            is_sec=sec_mask[ab, aj].astype(np.uint8),
-            score=sc_a[ab, aj].astype(np.int32),
-            mapq=mq[ab, aj].astype(np.int32),
-            nm=np.ascontiguousarray(nm_all[order], np.int32),
-            n_regs=n_regs[ab].astype(np.int32),
-            slot=aj.astype(np.int32),
-            sec=fields[ab, aj, 7].astype(np.int32),
-            clip5=clip5[ab, aj].astype(np.int32),
-            clip3=clip3[ab, aj].astype(np.int32),
-            cig_off=np.ascontiguousarray(off_all[order], np.int64),
-            cig_n=np.ascontiguousarray(cnt_all[order], np.int32),
-            match_len=np.ascontiguousarray(mlen_all[order], np.int32),
+            read_idx=read[o].astype(np.int32),
+            rid=rid[o].astype(np.int32),
+            pos=pos[o].astype(np.int32),
+            is_rev=is_rev[o].astype(np.uint8),
+            is_sec=(sec[o] >= 0).astype(np.uint8),
+            score=score[o].astype(np.int32),
+            mapq=mapq[o].astype(np.int32),
+            nm=nm[o].astype(np.int32),
+            n_regs=n_regs[o].astype(np.int32),
+            slot=slot[o].astype(np.int32),
+            sec=sec[o].astype(np.int32),
+            clip5=np.where(is_rev, L - qe, qb)[o].astype(np.int32),
+            clip3=np.where(is_rev, qb, L - qe)[o].astype(np.int32),
+            cig_off=cig_off[o].astype(np.int64),
+            cig_n=cig_n[o].astype(np.int32),
+            match_len=match_len[o].astype(np.int32),
             run_ops=np.ascontiguousarray(run_ops, np.uint8),
             run_lens=np.ascontiguousarray(run_lens, np.int32))
 
@@ -939,11 +869,11 @@ class BWAAligner:
             return bytes(payload), counts
         mask = cols["read_idx"] < B
         if not mask.all():
-            cols = _filter_cols(cols, mask)
+            cols = _take_cols(cols, mask)
         opt = self.options
         ksf = keep_sec_frac
         if keep_sec_frac < 0.0 or keep_sec_frac > 1.0:
-            cols = _filter_cols(cols, cols["is_sec"] == 0)
+            cols = _take_cols(cols, cols["is_sec"] == 0)
             ksf = 0.0
         qn = [r.name.encode() for r in chunk]
         sq = [r.seq.encode() for r in chunk]
@@ -1065,13 +995,13 @@ class BWAAligner:
         the classic path when its extension DP rows overflowed."""
         cols = self._hits_cols_from_full(enc, lens, res)
         if cols is None:
-            B = enc.shape[0]
-            return self._regions_to_hits(
-                enc, lens, self._collect_regions(enc, lens)[:B])
+            cols = self._regions_to_hits(enc, lens,
+                                         self._collect_regions(enc, lens))
         return self._cols_to_hit_dicts(cols, enc.shape[0])
 
     def _cols_to_hit_dicts(self, cols, B):
-        """Columnar hits -> per-read dict lists (object-API shape)."""
+        """Columnar hits -> per-read dict lists, the shape
+        ``_assemble_records`` takes (the only maker of dict hits)."""
         hits: list[list[dict]] = [[] for _ in range(B)]
         ro, rl = cols["run_ops"], cols["run_lens"]
         ri = cols["read_idx"]

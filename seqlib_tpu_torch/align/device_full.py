@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from .. import profiling
-from .device_pipeline import POS_BIG, dp_rows, global_and_traceback, \
-    seed_chain_extend, OP_NONE
+from .device_pipeline import POS_BIG, dp_rows, dp_widths, \
+    global_and_traceback, seed_chain_extend, OP_NONE
 
 # field indices of the per-region output block
 F_QB, F_QE, F_RB, F_RE, F_SCORE, F_SUB, F_SUBN, F_SEC, F_FLAGS, \
@@ -189,7 +189,7 @@ def align_full(fm, text, enc_lens, l_pac: int,
 
     # ---- global-DP row compaction ------------------------------------
     with profiling.span("global_dp", device=dev):
-        Lt = L + min(2 * w, 128)
+        Lt, _ = dp_widths(L, w)
         span_t = re - rb
         span_q = qe - qb
         wide = live_a & ((span_t > Lt) | (span_q > L))

@@ -31,6 +31,10 @@ OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
 
 # per-seed second-extension slots appended to the max_chains region slots
 ESC_SLOTS = 3
+# the plain route's direction matrix is M x Lq x (Lt + 1) bytes: rows go
+# through the global DP in groups of at most this many bytes (rows are
+# independent); on the card the groups bound the kernel's slab
+GLOBAL_DP_BYTES = 4 << 30
 # sentinel text position: past every position of any index (positions are
 # int64 on both the narrow and the wide path)
 POS_BIG = 1 << 62
@@ -42,6 +46,14 @@ I64 = torch.int64
 def dp_rows(B: int) -> int:
     """Compacted DP-row budget for a batch of B reads."""
     return max(3 * B // 4, 64)
+
+
+def dp_widths(L: int, w: int) -> tuple[int, int]:
+    """The global DP's target windows for reads of width L: the narrow
+    one (deletions up to min(2w, 128) bp), which the device program runs,
+    and the wide one (up to 512 bp), which the host runs; a region past
+    the wide one is dropped."""
+    return L + min(2 * w, 128), L + 512
 
 
 def _compact(values, ok, dest, M, fill):
@@ -472,12 +484,19 @@ def global_and_traceback(q, ql, t, tl,
     ``csrc/global_dp.cu`` (``sw_cuda.global_traceback_cuda``: no host
     read, ``traceback.steps`` the exact longest walk); CPU tensors the
     plain route ``global_and_traceback_plain``, equal to it bit for
-    bit."""
+    bit.  Rows go in groups of at most ``GLOBAL_DP_BYTES`` of the plain
+    route's direction matrix, one call a group."""
     kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
               match=match, mismatch=mismatch, band=band)
-    if q.is_cuda:
-        return sw_cuda.global_traceback_cuda(q, ql, t, tl, **kw)
-    return global_and_traceback_plain(q, ql, t, tl, **kw)
+    run = sw_cuda.global_traceback_cuda if q.is_cuda \
+        else global_and_traceback_plain
+    M, Lq = q.shape
+    group = max(1, GLOBAL_DP_BYTES // (Lq * (t.shape[1] + 1)))
+    if M <= group:
+        return run(q, ql, t, tl, **kw)
+    parts = [run(q[g:g + group], ql[g:g + group], t[g:g + group],
+                 tl[g:g + group], **kw) for g in range(0, M, group)]
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 def global_and_traceback_plain(q, ql, t, tl,
@@ -548,8 +567,3 @@ def global_and_traceback_plain(q, ql, t, tl,
         | (o4[..., 3] << 6)
     return score.to(I32), packed, nm.to(I32)
 
-
-def global_and_traceback_packed(q, ql, t, tl, **kw):
-    """global_and_traceback with (score, nm) stacked into one [M, 2]."""
-    score, packed, nm = global_and_traceback(q, ql, t, tl, **kw)
-    return torch.stack([score, nm], dim=1), packed

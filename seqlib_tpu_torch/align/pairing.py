@@ -301,7 +301,8 @@ def _rescued_records(aligner, found, jobs_meta, seqs, names, hardclip,
         enc, lens = aligner._encode_batch(gseqs)
         regions = [aligner._dedup_and_mark(found[j]) for j in job_ids]
         regions += [[] for _ in range(enc.shape[0] - len(regions))]
-        hits = aligner._regions_to_hits(enc, lens, regions)
+        hits = aligner._cols_to_hit_dicts(
+            aligner._regions_to_hits(enc, lens, regions), len(regions))
         for k, (side, i) in enumerate(keys):
             out[(side, i)] = aligner._assemble_records(
                 gseqs[k], names[i], hits[k], hardclip, keep_sec_frac,

@@ -39,7 +39,7 @@ import numpy as np
 
 from ..device import resolve_device, run_on_devices
 from ..index.sharded import ShardedFMIndex
-from .aligner import AlnReg, BWAAligner
+from .aligner import AlnReg, BWAAligner, _merge_cols, _take_cols
 from .options import AlignerOptions
 
 _Read = collections.namedtuple("_Read", "name seq")
@@ -143,29 +143,18 @@ class ShardedBWAAligner(BWAAligner):
         return regions
 
     def _regions_to_hits(self, enc, lens, regions):
-        """Each shard's global DP on its own regions; contig ids offset to
-        the global numbering, NA counting every shard's regions."""
-        B = len(regions)
-        merged: list[list[dict]] = [[] for _ in range(B)]
-
-        def shard_hits(s, sub):
-            shard_regs = [[r for r in rs if r.shard == s] for rs in regions]
-            if not any(shard_regs):
-                return None
-            return sub._regions_to_hits(enc, lens, shard_regs)
-
-        for s, hits in enumerate(self._per_shard(shard_hits)):
-            if hits is None:
-                continue
-            roff = self.index.first_rid[s]
-            for b in range(B):
-                for h in hits[b]:
-                    h["rid"] += roff
-                    merged[b].append(h)
-        for b in range(B):
-            for h in merged[b]:
-                h["n_regs"] = len(regions[b])
-        return merged
+        """Each shard's global DP and columnar hits of its own regions,
+        merged: contig ids offset to the global numbering, NA counting
+        every shard's regions, each read's hits in shard order."""
+        parts = self._per_shard(lambda s, sub: sub._regions_to_hits(
+            enc, lens, [[r for r in rs if r.shard == s] for rs in regions]))
+        for s, cols in enumerate(parts):
+            cols["rid"] = cols["rid"] + self.index.first_rid[s]
+        cols = _merge_cols(parts)
+        cols = _take_cols(cols, np.argsort(cols["read_idx"], kind="stable"))
+        cols["n_regs"] = np.array([len(rs) for rs in regions],
+                                  np.int32)[cols["read_idx"]]
+        return cols
 
     def _finish_batch(self, chunk, enc, lens, res, hardclip,
                       keep_sec_frac, max_secondary):
@@ -174,7 +163,8 @@ class ShardedBWAAligner(BWAAligner):
         regions = self._collect_regions(enc, lens, stage1=res)[:len(chunk)]
         if keep_sec_frac < 0.0 or keep_sec_frac > 1.0:
             regions = [[r for r in rs if r.secondary < 0] for rs in regions]
-        hits = self._regions_to_hits(enc, lens, regions)
+        hits = self._cols_to_hit_dicts(
+            self._regions_to_hits(enc, lens, regions), len(regions))
         for b, r in enumerate(chunk):
             yield r, self._assemble_records(r.seq, r.name, hits[b], hardclip,
                                             keep_sec_frac, max_secondary)

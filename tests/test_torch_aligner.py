@@ -14,6 +14,7 @@ plain versions of its kernels.
 """
 
 import collections
+import math
 import os
 
 import numpy as np
@@ -23,7 +24,9 @@ import torch
 from regen_golden import make_repeat_genome, make_repeat_reads
 from seqlib_tpu.align import BWAAligner as JaxAligner
 from seqlib_tpu.index import FMIndex as JaxFMIndex
-from seqlib_tpu_torch.align import BWAAligner, FusedOverflowError
+from seqlib_tpu_torch.align import (AlignerOptions, AlnReg, BWAAligner,
+                                    FusedOverflowError)
+from seqlib_tpu_torch.align.aligner import approx_mapq
 from seqlib_tpu_torch.align.device_full import FLAG_OVER, NFIELD
 from seqlib_tpu_torch.index import FMIndex
 
@@ -175,3 +178,67 @@ def test_host_global_pass_equals_jax(aligners, all_reads):
     got = ta.align_batch_bam(seqs, names, sam=True)
     assert got[0] == want[0]
     assert np.array_equal(got[1], want[1])
+
+
+def _mapq_se(opt, r):
+    """bwa's mem_approx_mapq_se on one region, scalar float64 with
+    ``math.log``: the oracle of ``approx_mapq``."""
+    sub = r.sub if r.sub else opt.min_seed_len * opt.a
+    sub = max(sub, r.csub)
+    if sub >= r.score:
+        return 0
+    length = max(r.qe - r.qb, r.re - r.rb)
+    identity = 1.0 - float(length * opt.a - r.score) \
+        / (opt.a + opt.b) / length
+    if r.score == 0:
+        mapq = 0
+    else:
+        tmp = 1.0 if length < opt.mapQ_coef_len \
+            else opt.mapQ_coef_fac / math.log(length)
+        tmp *= identity * identity
+        mapq = int(6.02 * (r.score - sub) / opt.a * tmp * tmp + 0.499)
+    if r.sub_n > 0:
+        mapq -= int(4.343 * math.log(r.sub_n + 1) + 0.499)
+    mapq = min(mapq, 60)
+    mapq = max(mapq, 0)
+    return int(mapq * (1.0 - r.frac_rep) + 0.499)
+
+
+@pytest.mark.parametrize("frac_rep", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("sub_n", range(6))
+def test_approx_mapq_equals_scalar_bwa(sub_n, frac_rep):
+    """The one MAPQ (``approx_mapq``, numpy arrays, ``np.log``) equals
+    bwa's scalar mem_approx_mapq_se on every length 1..10,000 (both
+    sides of mapQ_coef_len; at 9,170 ``np.log`` and ``math.log`` differ
+    in the last bit), scores 0..span x a (all of them beside 50 and
+    9,170), sub 0 and above, the longer span on either side, and a = 1
+    and 2."""
+    opt = AlignerOptions()
+    opt.set_a_score(1 + sub_n % 2)
+    rng = np.random.default_rng(10 * sub_n + int(2 * frac_rep))
+    # every score at the lengths beside mapQ_coef_len and at 9,170; four
+    # (0, span x a, two drawn) at every length
+    dense = np.r_[45:56, 9170]
+    length = np.concatenate([np.repeat(np.arange(1, 10_001), 4),
+                             np.repeat(dense, dense * opt.a + 1)])
+    top = length * opt.a
+    score = rng.integers(0, top + 1)
+    score[0:40_000:4], score[1:40_000:4] = 0, top[1:40_000:4]
+    score[40_000:] = np.concatenate([np.arange(n * opt.a + 1)
+                                     for n in dense])
+    sub = np.where(rng.random(length.size) < 0.5, 0,
+                   rng.integers(1, top + 1))
+    other = rng.integers(0, length + 1)
+    q_long = rng.random(length.size) < 0.5
+    qspan = np.where(q_long, length, other)
+    tspan = np.where(q_long, other, length)
+    want = [_mapq_se(opt, AlnReg(rb=500, re=500 + int(t), qb=3,
+                                 qe=3 + int(q), score=int(s), seedcov=0,
+                                 frac_rep=frac_rep, sub=int(u),
+                                 sub_n=sub_n))
+            for q, t, s, u in zip(qspan, tspan, score, sub)]
+    got = approx_mapq(opt, score, sub, np.full(length.size, sub_n),
+                      np.maximum(qspan, tspan),
+                      np.full(length.size, frac_rep))
+    assert got.tolist() == want
+    assert (max(want) > 0) == (frac_rep < 1.0)

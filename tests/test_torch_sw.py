@@ -312,6 +312,29 @@ def test_global_and_traceback_cpu_takes_the_plain_route():
     assert counters["traceback.steps"] % 8 == 0
 
 
+def test_global_and_traceback_groups_equal_one_call(monkeypatch):
+    """With ``GLOBAL_DP_BYTES`` cut to 7 rows of direction matrix, 25
+    rows go through in four calls (7, 7, 7, 4) whose score, packed codes
+    and NM equal one ungrouped call's."""
+    arrays = [torch.from_numpy(a) for a in global_dp_rows(25, 32, 60,
+                                                          seed=5, band=12)]
+    plain = tdp.global_and_traceback_plain
+    calls = []
+
+    def counted(q, *args, **kw):
+        calls.append(q.shape[0])
+        return plain(q, *args, **kw)
+
+    monkeypatch.setattr(tdp, "global_and_traceback_plain", counted)
+    want = tdp.global_and_traceback(*arrays, band=12)
+    assert calls == [25]
+    monkeypatch.setattr(tdp, "GLOBAL_DP_BYTES", 7 * 32 * (60 + 1) + 5)
+    got = tdp.global_and_traceback(*arrays, band=12)
+    assert calls == [25, 7, 7, 7, 4]
+    for g, w, name in zip(got, want, ("score", "ops", "nm")):
+        assert torch.equal(g, w), name
+
+
 def test_global_dp_launcher_refuses_cpu_tensors():
     """The global DP kernel's launcher never runs a CPU tensor."""
     arrays = [torch.from_numpy(a) for a in global_dp_rows(4, 16, 24)]
