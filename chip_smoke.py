@@ -115,10 +115,11 @@ last line is printed):
    bandwidth measured on the index's rows, and the longest walk x the
    dependent-load latency.  Then the global DP kernel
    (``csrc/global_dp.cu``) on the same batch's rows: every recorded
-   call held against the plain route on the card (tolerance 0), its
-   device counters against the plain route's, and the largest call
-   timed beside ``portbench.roofline.global_dp_bound_ms`` and the plain
-   route's ms;
+   call's score, NM and CIGAR runs held against the plain route on the
+   card (tolerance 0), its device counters against the plain route's,
+   and the largest call timed (the DP with its walk and the gather of
+   the runs apart) beside ``portbench.roofline.global_dp_bound_ms`` and
+   the plain route's ms;
 15. records: the bam phase's sorted BAM (the main reads aligned on the
    card) through ``BamWriter(CRAM)`` with the reference attached (RR=1)
    and without, ``build_index`` (.crai), ``BamReader`` over each,
@@ -1569,19 +1570,43 @@ def walk_phase(aln, genome: str, card: str, load_ns: float) -> dict:
         lanes=lanes, lane_steps=lane_steps, longest=longest, capped=capped)
 
 
+def gdp_err(got, want) -> int:
+    """Largest difference of the global DP kernel's (score, nm, run_off,
+    runs) from the plain route's: score, NM and offsets element by
+    element, and the kernel's first run_off[M] run words against the
+    plain route's runs (a missing word counts 1 << 31)."""
+    err = 0
+    for g, w in zip(got[:3], want[:3]):
+        if g.shape != w.shape:
+            return 1 << 31
+        if w.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max()))
+    n = want[3].numel()
+    if got[3].numel() < n or int(want[2][-1]) != n:
+        return 1 << 31
+    if n:
+        err = max(err, int((got[3][:n].to(torch.int64)
+                            - want[3].to(torch.int64)).abs().max()))
+    return err
+
+
 def global_dp_phase(aln, genome: str, card: str) -> dict:
     """The global DP kernel on what one WALK_READS-read batch (the
     benchmark's batch) hands it on the loaded index: every recorded call
     and the kernel again against the plain route
-    ``global_and_traceback_plain`` on the same CUDA inputs (score, packed
-    ops and NM, tolerance 0); the tracer's counters of the kernel against
-    the plain route's (DP rows equal, the exact longest walk the plain
-    route's steps before its rounding up to 8); then the batch's largest
-    call timed (device ms a launch over WALK_REPS, ms a call with the
-    wrapper, the plain route's synchronised ms) beside
-    ``portbench.roofline.global_dp_bound_ms`` for the same rows.  Returns
-    the kernel's fields of the ``kernels`` line."""
+    ``global_and_traceback_plain`` on the same CUDA inputs (score, NM,
+    run offsets and CIGAR runs, tolerance 0); the tracer's counters of the
+    kernel against the plain route's (DP rows and runs equal, the exact
+    longest walk the plain route's steps before its rounding up to 8);
+    then the batch's largest call timed (device ms a call over WALK_REPS,
+    and by kernel under torch.profiler: the DP with its walk, the gather
+    of the runs, the rest; ms a call with the wrapper; the plain route's
+    synchronised ms) beside ``portbench.roofline.global_dp_bound_ms`` for
+    the same rows.  Returns the kernel's fields of the ``kernels``
+    line."""
     from portbench import roofline
+    from torch.profiler import ProfilerActivity, profile
     t_phase = time.time()
     batch = simulate_reads(genome, WALK_READS, seed=13, length=READ_BP)
     with Recorder() as rec:
@@ -1591,18 +1616,16 @@ def global_dp_phase(aln, genome: str, card: str) -> dict:
         raise AssertionError("global DP: no call in the batch")
     err, shapes = 0, []
     for args, kw, got in rec.gdp:
-        want = global_and_traceback_plain(*args, **kw)
+        pkw = {k: v for k, v in kw.items() if k != "group"}
+        want = global_and_traceback_plain(*args, **pkw)
         again = sw_cuda.global_traceback_cuda(*args, **kw)
-        for g, a, w in zip(got, again, want):
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
-                               .abs().max()) if w.numel() else 0,
-                      int((a.to(torch.int64) - w.to(torch.int64))
-                          .abs().max()) if w.numel() else 0)
+        err = max(err, gdp_err(got, want), gdp_err(again, want))
         shapes.append((tuple(args[0].shape), args[2].shape[1], kw["band"]))
     if err:
         raise AssertionError(f"global DP: the kernel differs from the plain "
                              f"route on the batch's rows ({err})")
     args, kw, _ = max(rec.gdp, key=lambda g: g[0][0].shape[0])
+    pkw = {k: v for k, v in kw.items() if k != "group"}
     q, ql, t, tl = args
     profiling.take()
     with profiling.tracing():
@@ -1610,12 +1633,13 @@ def global_dp_phase(aln, genome: str, card: str) -> dict:
         torch.cuda.synchronize()
     kc = profiling.take().counters
     with profiling.tracing():
-        global_and_traceback_plain(*args, **kw)
+        global_and_traceback_plain(*args, **pkw)
         torch.cuda.synchronize()
     pc = profiling.take().counters
     steps, rows = kc["traceback.steps"], kc["global_dp.dp_rows_run"]
+    runs = kc["traceback.runs"]
     T = (2 * (q.shape[1] + t.shape[1]) + 7) // 4 * 4
-    if rows != pc["global_dp.dp_rows_run"] \
+    if rows != pc["global_dp.dp_rows_run"] or runs != pc["traceback.runs"] \
             or pc["traceback.steps"] != min(T, (steps + 7) // 8 * 8) \
             or any(k.startswith(("sync.", "upload.")) for k in kc):
         raise AssertionError(f"global DP: the kernel's counters {kc} do not "
@@ -1624,25 +1648,42 @@ def global_dp_phase(aln, genome: str, card: str) -> dict:
                    WALK_REPS)
     ev = cuda_ms(lambda: sw_cuda.global_traceback_cuda(*args, **kw),
                  WALK_REPS)
+    by = {"global_dp_kernel": 0.0, "gather_runs_kernel": 0.0, "rest": 0.0}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(WALK_REPS):
+            sw_cuda.global_traceback_cuda(*args, **kw)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in kern:
+        k = next((k for k in by if k in e.name), "rest")
+        by[k] += e.time_range.elapsed_us() / 1e3 / WALK_REPS
+    split = (f"the DP and walk {by['global_dp_kernel']:.4f}, the gather of "
+             f"the runs {by['gather_runs_kernel']:.4f}, the rest (fill, "
+             f"scan) {by['rest']:.4f} ms a call (profiler)" if kern else
+             "by kernel: not measured (the profiler recorded no device "
+             "events)")
     plain = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.time()
-        global_and_traceback_plain(*args, **kw)
+        global_and_traceback_plain(*args, **pkw)
         torch.cuda.synchronize()
         plain.append(1e3 * (time.time() - t0))
-    bound, by = roofline.global_dp_bound_ms(q, t, ql, tl, kw["band"])
+    bound, bound_by = roofline.global_dp_bound_ms(q, t, ql, tl, kw["band"])
     cells = roofline.global_dp_cells(ql, tl, kw["band"])
     M = q.shape[0]
     log(f"global DP: {len(rec.gdp)} call(s) of one {WALK_READS}-read batch "
-        f"on the loaded index (rows, Lq; Lt; band: {shapes}): score, packed "
-        f"ops and NM == the plain route's (tolerance 0); the largest: {M} "
-        f"rows, {rows} DP rows at most, {cells} band cells, the longest walk "
-        f"{steps} steps (plain route: {pc['traceback.steps']}, "
-        f"{pc.get('sync.traceback.live', 0)} device reads) [{card}]")
-    log(f"global DP: {ms:.4f} ms device time a launch ({ev:.3f} ms/call with "
-        f"the wrapper; plain route {', '.join(f'{p:.0f}' for p in plain)} ms "
-        f"on the card); bound {bound:.4f} ms ({by}), {ms / bound:.2f}x; phase "
+        f"on the loaded index (rows, Lq; Lt; band: {shapes}): score, NM, "
+        f"run offsets and CIGAR runs == the plain route's (tolerance 0); the "
+        f"largest: {M} rows, {rows} DP rows at most, {cells} band cells, the "
+        f"longest walk {steps} steps (plain route: {pc['traceback.steps']}, "
+        f"{pc.get('sync.traceback.live', 0)} device reads), {runs} runs "
+        f"[{card}]")
+    log(f"global DP: {ms:.4f} ms device time a call ({split}; {ev:.3f} "
+        f"ms/call with the wrapper; plain route "
+        f"{', '.join(f'{p:.0f}' for p in plain)} ms on the card); bound "
+        f"{bound:.4f} ms ({bound_by}), {ms / bound:.2f}x; phase "
         f"{time.time() - t_phase:.1f} s [{card}]")
     return dict(
         name="global_dp", route="cuda",
@@ -1650,8 +1691,10 @@ def global_dp_phase(aln, genome: str, card: str) -> dict:
         replaces="none (XLA: seqlib_tpu/ops/sw.py::global_batch and "
                  "align/device_pipeline.py::global_and_traceback)",
         max_abs_err=err, ms=ms, event_ms=ev, plain_ms=float(np.mean(plain)),
-        bound_ms=bound, bound_by=by, library_ms=None, rows=M, cells=cells,
-        longest_walk=steps)
+        dp_ms=by["global_dp_kernel"] if kern else None,
+        gather_ms=by["gather_runs_kernel"] if kern else None,
+        bound_ms=bound, bound_by=bound_by, library_ms=None, rows=M,
+        cells=cells, longest_walk=steps, runs=runs)
 
 
 def write_fasta(path: str, contigs, width: int = 80) -> None:

@@ -84,7 +84,8 @@ from .device_full import (F_DPROW, F_FLAGS, F_QB, F_QE, F_RB, F_RE,
                           FLAG_OVER, FLAG_PERFECT, FLAG_WIDE, NFIELD,
                           _hash64, align_full)
 from .chain import chain_batch
-from .device_pipeline import (ESC_SLOTS, dp_rows, dp_widths, extend_chains,
+from .device_pipeline import (ESC_SLOTS, RUN_LEN_MASK, RUN_SHIFT, dp_rows,
+                              dp_widths, extend_chains,
                               global_and_traceback, seed_and_locate,
                               seed_chain_extend)
 from .options import AlignerOptions
@@ -141,41 +142,19 @@ def _bucket(n: int, mn: int = 64) -> int:
     return (n + 511) // 512 * 512
 
 
-def _unpack_ops(packed: np.ndarray) -> np.ndarray:
-    """Inverse of the device 2-bit packing -> [M, 4*Tp] step codes."""
-    p = packed.astype(np.uint8)
-    M, Tp = p.shape
-    out = np.empty((M, Tp * 4), np.uint8)
-    out[:, 0::4] = p & 3
-    out[:, 1::4] = (p >> 2) & 3
-    out[:, 2::4] = (p >> 4) & 3
-    out[:, 3::4] = (p >> 6) & 3
-    return out
+def _fetch_runs(run_off, runs):
+    """``global_and_traceback``'s run offsets and words, on the host: the
+    offsets, then only the ``run_off[-1]`` words they use."""
+    off = run_off.cpu().numpy()
+    return off, runs[:int(off[-1])].cpu().numpy()
 
 
-def _ops_to_runs(ops: np.ndarray, n_rows: int):
-    """Run-length decode traceback codes into (run_rows, run_ops,
-    run_lens), rows ascending, runs in forward 2L order (0=M 1=D 2=I)."""
-    sub = ops[:n_rows, ::-1]
-    rows, cols = np.nonzero(sub < 3)
-    vals = sub[rows, cols]
-    if vals.size == 0:
-        return (np.empty(0, np.int32), np.empty(0, np.uint8),
-                np.empty(0, np.int32))
-    brk = np.ones(vals.size, dtype=bool)
-    brk[1:] = (rows[1:] != rows[:-1]) | (vals[1:] != vals[:-1])
-    starts = np.flatnonzero(brk)
-    lens = np.diff(np.append(starts, vals.size))
-    return (rows[starts].astype(np.int32),
-            vals[starts].astype(np.uint8), lens.astype(np.int32))
-
-
-def _run_spans(run_rows: np.ndarray, d: np.ndarray):
-    """First run (int64) and run count (int32) of each DP row in ``d``,
-    over ``_ops_to_runs``' ascending ``run_rows``."""
-    off = np.searchsorted(run_rows, d).astype(np.int64)
-    cnt = np.searchsorted(run_rows, d, side="right") - off
-    return off, cnt.astype(np.int32)
+def _split_runs(words: np.ndarray):
+    """Run words -> (run_ops uint8, run_lens int32), the columns'
+    format (0=M 1=D 2=I)."""
+    w = words.view(np.uint32)
+    return ((w >> RUN_SHIFT).astype(np.uint8),
+            (w & RUN_LEN_MASK).astype(np.int32))
 
 
 def _windows(seq: np.ndarray, start: np.ndarray, n: np.ndarray,
@@ -336,8 +315,9 @@ class BWAAligner:
 
     def _dispatch_full(self, enc: np.ndarray, lens: np.ndarray):
         """Run the whole device program for one encoded batch; returns
-        (regions, snm, ops) tensors on the aligner's device, or on a
-        mesh one such triple per slice (``_Slices``)."""
+        ``align_full``'s (regions, snm, run_off, runs) tensors on the
+        aligner's device, or on a mesh one such tuple per slice
+        (``_Slices``)."""
         if int(lens.max(initial=0)) > self.LONG_READ_BP:
             raise FusedOverflowError(
                 f"reads longer than {self.LONG_READ_BP} bp exceed the fused "
@@ -641,35 +621,33 @@ class BWAAligner:
         nm = np.zeros(read.size, np.int32)
         cig_off = np.zeros(read.size, np.int64)
         cig_n = np.zeros(read.size, np.int32)
-        run_ops, run_lens = [np.zeros(0, np.uint8)], [np.zeros(0, np.int32)]
+        words = [np.zeros(0, np.int32)]
         for sel, width, band, split in (
                 (~perfect & (tspan <= Lt), Lt, 2 * opt.w + 8, True),
                 (~perfect & (tspan > Lt), Lt_wide, Lt_wide + 8, False)):
             idx = np.flatnonzero(sel)
-            nm[idx], (rr, ro, rl) = self._window_dp(enc, rows[idx], width,
-                                                    band, split)
-            off, cig_n[idx] = _run_spans(rr, np.arange(idx.size))
-            cig_off[idx] = off + sum(x.size for x in run_ops)
-            run_ops.append(ro)
-            run_lens.append(rl)
+            nm[idx], off, cig_n[idx], w = self._window_dp(
+                enc, rows[idx], width, band, split)
+            cig_off[idx] = off + sum(x.size for x in words)
+            words.append(w)
         n_regs = np.array([len(rs) for rs in regions], np.int64)
         return self._hit_cols(
             lens, read, slot, f, frac_rep, n_regs[read], nm, cig_off, cig_n,
-            np.where(perfect, qspan, 0), np.concatenate(run_ops),
-            np.concatenate(run_lens))
+            np.where(perfect, qspan, 0), *_split_runs(np.concatenate(words)))
 
     def _window_dp(self, enc, rows, width: int, band: int,
                    split: bool = False):
         """The host global DP of region windows: ``rows`` int64 [M, 5] of
-        (read, qb, qe, rb, re) -> each row's NM (int32 [M]) and its CIGAR
-        runs (``_ops_to_runs``).  Query windows are the read's width,
-        target windows ``width`` codes.  With ``split`` on a mesh the rows
-        are cut into one contiguous piece per entry, each run on the
-        entry's device at once (rows are independent)."""
+        (read, qb, qe, rb, re) -> each row's NM (int32 [M]), first run
+        (int64 [M]) and run count (int32 [M]) in the run words it returns
+        (``global_and_traceback``'s, int32).  Query windows are the read's
+        width, target windows ``width`` codes.  With ``split`` on a mesh
+        the rows are cut into one contiguous piece per entry, each run on
+        the entry's device at once (rows are independent)."""
         M = rows.shape[0]
         if not M:
-            return np.zeros(0, np.int32), _ops_to_runs(
-                np.zeros((0, 0), np.uint8), 0)
+            return (np.zeros(0, np.int32), np.zeros(0, np.int64),
+                    np.zeros(0, np.int32), np.zeros(0, np.int32))
         b, qb, qe, rb, re = rows.T
         Lq = enc.shape[1]
         args = (_windows(enc.reshape(-1), b * Lq + qb, qe - qb, Lq),
@@ -681,20 +659,22 @@ class BWAAligner:
                   e_ins=opt.e_ins, match=opt.a, mismatch=opt.b, band=band)
 
         def run(sel, dev):
-            _, packed, nm = global_and_traceback(
+            _, nm, run_off, runs = global_and_traceback(
                 *(torch.from_numpy(a[sel]).to(dev) for a in args), **kw)
-            return nm.cpu().numpy(), packed.cpu().numpy()
+            return (nm.cpu().numpy(), *_fetch_runs(run_off, runs))
 
         if not split or self.mesh is None:
-            nm, packed = run(slice(None), self.device)
+            outs = [run(slice(None), self.device)]
         else:
             pieces = np.array_split(np.arange(M), self.n_shards)
             groups = [(d, [lambda r=r, d=d: run(r, d)])
                       for r, d in zip(pieces, self.mesh.devices) if r.size]
             outs = [g[0] for g in run_on_devices(groups)]
-            nm = np.concatenate([o[0] for o in outs])
-            packed = np.concatenate([o[1] for o in outs])
-        return nm, _ops_to_runs(_unpack_ops(packed), M)
+        base = np.cumsum([0] + [o[2].size for o in outs[:-1]])
+        return (np.concatenate([o[0] for o in outs]),
+                np.concatenate([o[1][:-1] + k for o, k in zip(outs, base)]),
+                np.concatenate([np.diff(o[1]) for o in outs]).astype(np.int32),
+                np.concatenate([o[2] for o in outs]))
 
     # ------------------------------------------------------------------
     # host: MAPQ, contig resolution, columnar hits
@@ -724,15 +704,17 @@ class BWAAligner:
         """``_hits_cols_from_full`` of one device program's outputs, None
         on an overflow."""
         with profiling.span("finish.fetch"):
-            regions, snm, packed = (r.cpu().numpy() for r in res)
+            regions, snm = (r.cpu().numpy() for r in res[:2])
+            run_off, runs = _fetch_runs(*res[2:])
         with profiling.span("finish.cols"):
-            return self._host_cols(enc, lens, regions, snm, packed)
+            return self._host_cols(enc, lens, regions, snm, run_off, runs)
 
-    def _host_cols(self, enc, lens, regions, snm, packed):
+    def _host_cols(self, enc, lens, regions, snm, run_off, runs):
         """``_slice_cols`` on the outputs fetched to the host: the hits of
         the device's global-DP rows and exact matches, then, after their
         read's other hits, the wide and overflowed regions (FLAG_WIDE,
-        FLAG_OVER) through the host global DP in the wide window."""
+        FLAG_OVER) through the host global DP in the wide window.  A DP
+        row d's runs are ``runs[run_off[d]:run_off[d + 1]]``."""
         opt = self.options
         B, Lq = enc.shape
         C = REGION_SLOTS
@@ -747,8 +729,6 @@ class BWAAligner:
                     escapees_deferred=regions[:, extra0 + 7].sum())
         if B and int(regions[0, extra0 + 6]) > dp_rows(B):
             return None
-        n_dp = int(regions[0, extra0 + 5]) if B else 0
-        run_rows, run_ops, run_lens = _ops_to_runs(_unpack_ops(packed), n_dp)
 
         flags = fields[:, :, F_FLAGS]
         emit = ((flags & FLAG_EMIT) != 0) & (fields[:, :, F_SCORE] >= opt.T)
@@ -757,7 +737,8 @@ class BWAAligner:
         b_m, j_m = np.nonzero(emit & ((dprow >= 0) | perfect))
         perf_m = perfect[b_m, j_m]
         d_m = np.where(perf_m, 0, dprow[b_m, j_m])
-        off_m, cnt_m = _run_spans(run_rows, d_m)
+        off_m = run_off[d_m]
+        cnt_m = run_off[d_m + 1] - off_m
         nm_m = np.where(perf_m, 0, snm[d_m, 1])
         mlen_m = np.where(perf_m, fields[b_m, j_m, F_QE]
                           - fields[b_m, j_m, F_QB], 0)
@@ -770,10 +751,9 @@ class BWAAligner:
                                   f_f[:, F_RE] - f_f[:, F_RB])
         b_f, j_f, f_f = b_f[ok], j_f[ok], f_f[ok]
         Lt_wide = dp_widths(Lq, opt.w)[1]
-        nm_f, (rr, ro, rl) = self._window_dp(
+        nm_f, off_f, cnt_f, words_f = self._window_dp(
             enc, np.column_stack([b_f, f_f[:, F_QB:F_RE + 1]]), Lt_wide,
             Lt_wide + 8)
-        off_f, cnt_f = _run_spans(rr, np.arange(b_f.size))
 
         b = np.concatenate([b_m, b_f])
         j = np.concatenate([j_m, j_f])
@@ -781,11 +761,10 @@ class BWAAligner:
         return self._hit_cols(
             lens, b, j, fields[b, j], frac_rep[b], n_regs[b],
             np.concatenate([nm_m, nm_f]),
-            np.concatenate([np.where(perf_m, 0, off_m),
-                            off_f + run_ops.size]),
+            np.concatenate([np.where(perf_m, 0, off_m), off_f + runs.size]),
             np.concatenate([np.where(perf_m, 0, cnt_m), cnt_f]),
             np.concatenate([mlen_m, np.zeros(b_f.size, np.int64)]),
-            np.concatenate([run_ops, ro]), np.concatenate([run_lens, rl]))
+            *_split_runs(np.concatenate([runs, words_f])))
 
     def _hit_cols(self, lens, read, slot, f, frac_rep, n_regs, nm, cig_off,
                   cig_n, match_len, run_ops, run_lens):

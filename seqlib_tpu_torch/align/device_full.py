@@ -22,7 +22,7 @@ import torch
 
 from .. import profiling
 from .device_pipeline import POS_BIG, dp_rows, dp_widths, \
-    global_and_traceback, seed_chain_extend, OP_NONE
+    global_and_traceback, seed_chain_extend
 
 # field indices of the per-region output block
 F_QB, F_QE, F_RB, F_RE, F_SCORE, F_SUB, F_SUBN, F_SEC, F_FLAGS, \
@@ -105,7 +105,10 @@ def align_full(fm, text, enc_lens, l_pac: int,
 
     Returns (regions [B, S*NFIELD + 8] with S = max_chains + ESC_SLOTS
     region slots, int32 on a narrow index and int64 on a wide one, snm
-    int32 [M2, 2], ops uint8 [M2, Tp/4])."""
+    int32 [M2, 2], run_off int64 [M2 + 1], runs int32): DP row d's CIGAR
+    runs are ``runs[run_off[d]:run_off[d + 1]]`` (``global_and_traceback``'s
+    words; rows past the batch's live ones have none), and ``runs`` holds
+    ``run_off[M2]`` of them and room past."""
     B = enc_lens.shape[0]
     L = enc_lens.shape[1] - 4
     dev = enc_lens.device
@@ -203,7 +206,7 @@ def align_full(fm, text, enc_lens, l_pac: int,
             g_n = int(used.sum())
         profiling.count("global_dp.rows", g_n)
         # rows [g_n, M2) are empty (ql = tl = 0): their DP result is the
-        # trivial one (score 0, NM 0, no ops), so only g_n rows run
+        # trivial one (score 0, NM 0, no runs), so only g_n rows run
         with profiling.sync("global_dp.nonzero"):
             rows = torch.nonzero(used).flatten()
         g_b = torch.div(rows, C, rounding_mode="floor")
@@ -219,15 +222,13 @@ def align_full(fm, text, enc_lens, l_pac: int,
         tl_g = g_re - g_rb
         twin = text[(g_rb[:, None] + jt).clamp(0, text.shape[0] - 1)]
         twin = torch.where(jt < tl_g[:, None], twin, 4).to(torch.uint8)
-        gscore, packed, nm = global_and_traceback(
+        gscore, nm, run_off, runs = global_and_traceback(
             qwin, ql_g, twin, tl_g, o_del=o_del, e_del=e_del, o_ins=o_ins,
             e_ins=e_ins, match=match, mismatch=mismatch, band=glob_band)
         snm = torch.zeros((M2, 2), dtype=I32, device=dev)
         snm[:g_n, 0] = gscore
         snm[:g_n, 1] = nm
-        ops = torch.full((M2, packed.shape[1]), OP_NONE * 0x55,
-                         dtype=torch.uint8, device=dev)
-        ops[:g_n] = packed
+        run_off = torch.cat([run_off, run_off[-1:].expand(M2 - g_n)])
 
     # ---- packed per-region output ------------------------------------
     with profiling.span("pack", device=dev):
@@ -248,4 +249,4 @@ def align_full(fm, text, enc_lens, l_pac: int,
             torch.full((B,), out["n_dp"], dtype=I64, device=dev),
             out["esc_over"].to(I64)], dim=1)
         regions = torch.cat([fields.reshape(B, C * NFIELD), extra], dim=1)
-        return regions.to(I64 if fm.wide else I32), snm, ops
+        return regions.to(I64 if fm.wide else I32), snm, run_off, runs

@@ -6,8 +6,8 @@ kernel K2), SA locate, chaining, and left/right banded extension of
 every kept chain anchor (kernel K1 through the adaptive-band wrapper on
 the GPU) plus the tiered per-seed second extension.
 ``global_and_traceback`` is the banded global DP with an on-device
-traceback walk that emits packed op codes and NM counts: one launch of
-``csrc/global_dp.cu`` on CUDA tensors, the plain route
+traceback walk that emits each row's CIGAR runs and NM: ``csrc/
+global_dp.cu`` on CUDA tensors, the plain route
 ``global_and_traceback_plain`` on CPU tensors.
 
 JAX's fixed-shape idioms map as follows: ``.at[].set(mode="drop")`` is
@@ -32,9 +32,13 @@ OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
 # per-seed second-extension slots appended to the max_chains region slots
 ESC_SLOTS = 3
 # the plain route's direction matrix is M x Lq x (Lt + 1) bytes: rows go
-# through the global DP in groups of at most this many bytes (rows are
-# independent); on the card the groups bound the kernel's slab
+# through the global DP in groups of at most this many bytes' worth (rows
+# are independent), on the card too, a launch a group
 GLOBAL_DP_BYTES = 4 << 30
+# a CIGAR run word of the global DP: the op in the top 2 bits, the length
+# in the low 30
+RUN_SHIFT = 30
+RUN_LEN_MASK = (1 << RUN_SHIFT) - 1
 # sentinel text position: past every position of any index (positions are
 # int64 on both the narrow and the wide path)
 POS_BIG = 1 << 62
@@ -476,27 +480,72 @@ def global_and_traceback(q, ql, t, tl,
                          o_del: int = 6, e_del: int = 1, o_ins: int = 6,
                          e_ins: int = 1, match: int = 1, mismatch: int = 4,
                          band: int = 208):
-    """Banded global DP + on-device traceback.
+    """Banded global DP + on-device traceback of M rows whose lengths lie
+    inside their windows (0 <= ql <= Lq, 0 <= tl <= Lt).
 
-    Returns (score int32 [M], packed uint8 [M, Tp/4] step codes in
-    reverse walk order, 4 per byte at bits 0/2/4/6 with OP_NONE
-    padding, nm int32 [M]).  CUDA tensors take one launch of
+    Returns (score int32 [M], nm int32 [M], run_off int64 [M + 1], runs
+    int32): row r's CIGAR runs in forward 2L order are
+    ``runs[run_off[r]:run_off[r + 1]]``, one word a run, the op (OP_M,
+    OP_D, OP_I) at ``RUN_SHIFT`` and the length under ``RUN_LEN_MASK``;
+    ``runs`` may run on past ``run_off[M]``.  CUDA tensors take
     ``csrc/global_dp.cu`` (``sw_cuda.global_traceback_cuda``: no host
     read, ``traceback.steps`` the exact longest walk); CPU tensors the
-    plain route ``global_and_traceback_plain``, equal to it bit for
-    bit.  Rows go in groups of at most ``GLOBAL_DP_BYTES`` of the plain
-    route's direction matrix, one call a group."""
+    plain route ``global_and_traceback_plain``, equal to it bit for bit.
+    Rows go in groups of at most ``GLOBAL_DP_BYTES`` of the plain route's
+    direction matrix: on the card a launch a group, on the CPU a call a
+    group, whose runs are joined and offsets rebased."""
     kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
               match=match, mismatch=mismatch, band=band)
-    run = sw_cuda.global_traceback_cuda if q.is_cuda \
-        else global_and_traceback_plain
     M, Lq = q.shape
     group = max(1, GLOBAL_DP_BYTES // (Lq * (t.shape[1] + 1)))
+    if q.is_cuda:
+        return sw_cuda.global_traceback_cuda(q, ql, t, tl, group=group, **kw)
     if M <= group:
-        return run(q, ql, t, tl, **kw)
-    parts = [run(q[g:g + group], ql[g:g + group], t[g:g + group],
-                 tl[g:g + group], **kw) for g in range(0, M, group)]
-    return tuple(torch.cat(x) for x in zip(*parts))
+        return global_and_traceback_plain(q, ql, t, tl, **kw)
+    parts = [global_and_traceback_plain(q[g:g + group], ql[g:g + group],
+                                        t[g:g + group], tl[g:g + group],
+                                        **kw)
+             for g in range(0, M, group)]
+    run_off, base = [parts[0][2][:1]], 0
+    for p in parts:
+        run_off.append(p[2][1:] + base)
+        base += int(p[2][-1])
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
+            torch.cat(run_off), torch.cat([p[3] for p in parts]))
+
+
+def codes_to_runs(ops):
+    """The plain route's step codes, uint8 [M, T] in walk order (the
+    reverse of the CIGAR's) -> (run_off int64 [M + 1], runs int32), the
+    format of ``global_and_traceback``: a run ends where the op changes,
+    and OP_NONE steps (padding, and a state change inside the walk)
+    neither end a run nor count.  One device read: the runs' first
+    steps (``sync.traceback.run_starts``)."""
+    M, T = ops.shape
+    dev = ops.device
+    fwd = ops.flip(1).to(I64)
+    op = fwd < OP_NONE
+    # the op of the last step before each that is not OP_NONE
+    last = torch.where(op, torch.arange(T, device=dev), -1).cummax(1).values
+    before = torch.cat([torch.full((M, 1), -1, dtype=I64, device=dev),
+                        last[:, :-1]], dim=1)[:, :T]
+    prev = torch.where(before >= 0, fwd.gather(1, before.clamp(min=0)),
+                       OP_NONE)
+    rank = op.cumsum(1)             # a step's rank among its row's ops
+    with profiling.sync("traceback.run_starts"):
+        rows, cols = torch.nonzero(op & (fwd != prev), as_tuple=True)
+    first = rank[rows, cols]
+    n = rows.numel()
+    same = torch.cat([rows[1:] == rows[:-1],
+                      torch.zeros(1, dtype=torch.bool, device=dev)])[:n]
+    nxt = torch.where(same, torch.cat([first[1:], first[:1]])[:n],
+                      rank[rows, -1] + 1)
+    run_off = torch.zeros(M + 1, dtype=I64, device=dev)
+    run_off[1:] = torch.cumsum(torch.bincount(rows, minlength=M), 0)
+    word = (fwd[rows, cols] << RUN_SHIFT) | (nxt - first)
+    # an I run's word has bit 31 set: the int32 it is, by two's complement
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word)
+    return run_off, word.to(I32)
 
 
 def global_and_traceback_plain(q, ql, t, tl,
@@ -507,7 +556,9 @@ def global_and_traceback_plain(q, ql, t, tl,
     """``global_and_traceback`` in plain torch on any device: the row loop
     of ``global_batch``, then a walk of ~40 operations a step that reads
     the device every 8 steps (``traceback.steps`` rounded up to a
-    multiple of 8); the direction matrix stays on the device."""
+    multiple of 8), then the run-length encoding of its step codes
+    (``codes_to_runs``); the direction matrix stays on the device.
+    Counts ``traceback.runs`` on the host."""
     M, Lq = q.shape
     Lt = t.shape[1]
     dev = q.device
@@ -516,8 +567,7 @@ def global_and_traceback_plain(q, ql, t, tl,
                                mismatch=mismatch, band=band)
     dirs_flat = dirs.reshape(M, Lq * (Lt + 1))
     T = (2 * (Lq + Lt) + 7) // 4 * 4
-    Tp = (T + 3) // 4 * 4
-    ops = torch.full((M, Tp), OP_NONE, dtype=torch.uint8, device=dev)
+    ops = torch.full((M, T), OP_NONE, dtype=torch.uint8, device=dev)
     i = ql.to(I64).clone()
     j = tl.to(I64).clone()
     state = torch.zeros(M, dtype=I64, device=dev)
@@ -562,8 +612,7 @@ def global_and_traceback_plain(q, ql, t, tl,
         i = i - (is_m | is_i).to(I64)
         j = j - (is_m | is_d).to(I64)
     profiling.count("traceback.steps", steps)
-    o4 = ops.reshape(M, Tp // 4, 4)
-    packed = o4[..., 0] | (o4[..., 1] << 2) | (o4[..., 2] << 4) \
-        | (o4[..., 3] << 6)
-    return score.to(I32), packed, nm.to(I32)
+    run_off, runs = codes_to_runs(ops)
+    profiling.count("traceback.runs", runs.numel())
+    return score.to(I32), nm.to(I32), run_off, runs
 

@@ -27,10 +27,15 @@
 //     and tie order as ops/sw.py;
 //   - score = H(last row, clamp(tl, 0, Lt)); then the walk from (ql, tl)
 //     to (0, 0) with the plain walk's state machine, at most
-//     T = (2(Lq + Lt) + 7) / 4 * 4 steps, writing 2-bit ops (4 a byte,
-//     OP_NONE padding) and NM.
+//     T = (2(Lq + Lt) + 7) / 4 * 4 steps, and NM;
+//   - the walk's ops as CIGAR runs: a run ends where the op changes, and
+//     the OP_NONE steps (a state change inside the walk) neither end a
+//     run nor count, as the plain route's run-length encoding of its step
+//     codes.  A run is one int32 word, the op in the top 2 bits and the
+//     length in the low 30, and a row's runs come out in forward 2L
+//     order (the reverse of the walk's).
 // A row whose end cell lies outside the band gets the same NEG-derived
-// score, ops and NM as the plain version: nothing is "repaired".
+// score, runs and NM as the plain version: nothing is "repaired".
 //
 // Design: one warp per row (K1's shape, csrc/sw_extend.cu), four warps a
 // block.  Thread t holds a strip of S consecutive columns of H and F in
@@ -63,13 +68,26 @@
 // one dependent byte load a step, and runs in lockstep on all 32 threads
 // (the load a broadcast), while the card's other warps run their DP.
 //
+// Runs: every op of the walk passes through thread 0, which keeps the
+// open run and writes each finished one from the end of the row's slot
+// backwards, so that the slot's last n words are the row's n runs in
+// forward order, and then writes n.  Each M, D or I step moves (i, j)
+// one cell nearer (0, 0), so a row whose lengths lie inside its windows
+// (0 <= ql <= Lq, 0 <= tl <= Lt, as every caller's) has at most ql + tl
+// runs, and a slot of Lq + Lt words holds them all (a row outside its
+// windows keeps the first Lq + Lt runs its walk emits).  A second launch (global_dp_gather:
+// a warp a row) copies the slots' runs to one flat array at the offsets
+// the caller scanned from the counts, so the host reads only the runs.
+//
 // With a totals pointer (the tracer on) each warp takes the max of its
-// rows' DP rows and exact walk steps, then one atomicMax per total: the
-// tracer's global_dp.dp_rows_run and traceback.steps.  The plain route
-// rounds its traceback.steps up to a multiple of 8 (it looks every 8
-// steps); the kernel's is the exact longest walk.
+// rows' DP rows and exact walk steps and the sum of their runs, then one
+// atomic per total: the tracer's global_dp.dp_rows_run, traceback.steps
+// and traceback.runs.  The plain route rounds its traceback.steps up to a
+// multiple of 8 (it looks every 8 steps); the kernel's is the exact
+// longest walk.
 
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cstdlib>
@@ -90,6 +108,12 @@ constexpr int OP_M = 0, OP_D = 1, OP_I = 2, OP_NONE = 3;
 // or more, nor a slot with no target column
 constexpr int Q_NONE = -1;
 constexpr int T_NONE = -2;
+constexpr int GATHER_BLOCKS = 4096;  // blocks of the gather's grid, at most
+
+// a CIGAR run as one word: the op in the top 2 bits, the length below
+__device__ __forceinline__ int32_t run_word(int op, int len) {
+  return (int32_t)(((unsigned)op << 30) | (unsigned)len);
+}
 
 struct Params {
   const uint8_t* q;
@@ -97,15 +121,16 @@ struct Params {
   const uint8_t* t;
   const int32_t* tl;
   int32_t* score;
-  uint8_t* packed;
   int32_t* nm;
-  unsigned long long* totals;  // [dp rows, walk steps] or null
+  long long* counts;  // runs a row
+  int32_t* runs;      // a slot of R words a row
+  unsigned long long* totals;  // [dp rows, walk steps, runs] or null
   uint8_t* slab;
   int32_t* buf;
   size_t slab_warp;  // bytes of a warp's slab: Lq x stride
   int buf_warp;      // int32 of a warp's row buffer (chunked instance)
   int stride;        // bytes of a slab row: chunks x 32 x S
-  int M, Lq, Lt, band, warps, nch, T;
+  int M, Lq, Lt, band, warps, nch, T, R;
   int o_del, e_del, o_ins, e_ins, match, mismatch;
 };
 
@@ -205,7 +230,7 @@ __global__ void __launch_bounds__(WARPS * 32) global_dp_kernel(Params p) {
   uint8_t* slab = p.slab + (size_t)w * p.slab_warp;
   int32_t* bh = CHUNKED ? p.buf + (size_t)w * p.buf_warp : nullptr;
   int32_t* bf = CHUNKED ? bh + (size_t)nch * CW : nullptr;
-  unsigned long long most_rows = 0, most_steps = 0;
+  unsigned long long most_rows = 0, most_steps = 0, all_runs = 0;
   const int e0 = NEG >= NEG - p.o_del;  // column 0's E-extend bit
 
   for (int r = w; r < p.M; r += p.warps) {
@@ -287,11 +312,12 @@ __global__ void __launch_bounds__(WARPS * 32) global_dp_kernel(Params p) {
         if (t * S + k == cs) p.score[r] = H[k];
     }
 
-    // the walk, in lockstep on every thread; thread 0 writes
+    // the walk, in lockstep on every thread; thread 0 writes the runs,
+    // from the end of the row's slot backwards
     __syncwarp();
     int i = ql, j = tl, state = 0, nm = 0, s = 0;
-    unsigned acc = 0;
-    uint8_t* out = p.packed + (size_t)r * (p.T >> 2);
+    int cur = OP_NONE, len = 0, n = 0;
+    int32_t* slot_end = p.runs + (size_t)(r + 1) * p.R;
     for (; s < p.T; ++s) {
       if (i == 0 && j == 0) break;
       int op;
@@ -324,24 +350,51 @@ __global__ void __launch_bounds__(WARPS * 32) global_dp_kernel(Params p) {
           if (!(code & BIT_FEXT)) state = 0;
         }
       }
-      acc |= (unsigned)op << (2 * (s & 3));
-      if ((s & 3) == 3) {
-        if (t == 0) out[s >> 2] = (uint8_t)acc;
-        acc = 0;
+      if (op == OP_NONE) continue;
+      if (op == cur) {
+        ++len;
+        continue;
       }
+      if (len) {
+        if (t == 0 && n < p.R) slot_end[-1 - n] = run_word(cur, len);
+        ++n;
+      }
+      cur = op;
+      len = 1;
     }
-    if (s & 3) {
-      acc |= (0xFFu << (2 * (s & 3))) & 0xFFu;
-      if (t == 0) out[s >> 2] = (uint8_t)acc;
+    if (len) {
+      if (t == 0 && n < p.R) slot_end[-1 - n] = run_word(cur, len);
+      ++n;
     }
-    for (int b = ((s + 3) >> 2) + t; b < (p.T >> 2); b += 32) out[b] = 0xFF;
-    if (t == 0) p.nm[r] = nm;
+    n = min(n, p.R);
+    if (t == 0) {
+      p.nm[r] = nm;
+      p.counts[r] = n;
+    }
     most_rows = max(most_rows, (unsigned long long)rows);
     most_steps = max(most_steps, (unsigned long long)s);
+    all_runs += (unsigned long long)n;
   }
   if (p.totals && t == 0) {
     atomicMax(p.totals, most_rows);
     atomicMax(p.totals + 1, most_steps);
+    atomicAdd(p.totals + 2, all_runs);
+  }
+}
+
+// row r's runs, the last (off[r + 1] - off[r]) words of its slot of R, to
+// out[off[r]...]: a warp a row, a grid-stride loop over the rows
+__global__ void __launch_bounds__(WARPS * 32)
+gather_runs_kernel(const int32_t* __restrict__ slots,
+                   const long long* __restrict__ off,
+                   int32_t* __restrict__ out, int M, int R) {
+  const int t = threadIdx.x & 31;
+  const int stride = gridDim.x * WARPS;
+  for (int r = blockIdx.x * WARPS + (threadIdx.x >> 5); r < M; r += stride) {
+    const long long o = off[r];
+    const int n = (int)(off[r + 1] - o);
+    const int32_t* src = slots + (size_t)(r + 1) * R - n;
+    for (int k = t; k < n; k += 32) out[o + k] = src[k];
   }
 }
 
@@ -423,15 +476,17 @@ extern "C" int global_dp_plan(int Lq, int Lt, long long* out) {
   return 0;
 }
 
-// score, nm: int32 [M]; packed: uint8 [M, T/4] with T = (2(Lq + Lt) + 7)
-// / 4 * 4; totals: uint64 [2] (zeroed) or null; slab: warps x Lq x (slab
-// bytes a row); buf: warps x (row buffer int32), or null when not chunked.
-// q, t: uint8 codes [M, Lq], [M, Lt].
+// score, nm: int32 [M]; counts: int64 [M], each row's runs; runs: int32
+// [M, Lq + Lt], a slot a row whose last counts[r] words are row r's runs;
+// totals: uint64 [3] (zeroed) or null; slab: warps x Lq x (slab bytes a
+// row); buf: warps x (row buffer int32), or null when not chunked.  q, t:
+// uint8 codes [M, Lq], [M, Lt].
 extern "C" int global_dp(const void* q, const void* ql, const void* t,
-                         const void* tl, void* score, void* packed, void* nm,
-                         void* totals, void* slab, void* buf, int M, int Lq,
-                         int Lt, int band, int o_del, int e_del, int o_ins, int e_ins,
-                         int match, int mismatch, int warps, void* stream) {
+                         const void* tl, void* score, void* nm, void* counts,
+                         void* runs, void* totals, void* slab, void* buf,
+                         int M, int Lq, int Lt, int band, int o_del, int e_del,
+                         int o_ins, int e_ins, int match, int mismatch,
+                         int warps, void* stream) {
   if (M < 0 || Lq < 0 || Lt < 0 || warps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || warps == 0) return static_cast<int>(cudaGetLastError());
@@ -442,8 +497,9 @@ extern "C" int global_dp(const void* q, const void* ql, const void* t,
   p.t = static_cast<const uint8_t*>(t);
   p.tl = static_cast<const int32_t*>(tl);
   p.score = static_cast<int32_t*>(score);
-  p.packed = static_cast<uint8_t*>(packed);
   p.nm = static_cast<int32_t*>(nm);
+  p.counts = static_cast<long long*>(counts);
+  p.runs = static_cast<int32_t*>(runs);
   p.totals = static_cast<unsigned long long*>(totals);
   p.slab = static_cast<uint8_t*>(slab);
   p.buf = static_cast<int32_t*>(buf);
@@ -453,7 +509,23 @@ extern "C" int global_dp(const void* q, const void* ql, const void* t,
   p.M = M; p.Lq = Lq; p.Lt = Lt; p.band = band; p.warps = warps;
   p.nch = sh.nch;
   p.T = (2 * (Lq + Lt) + 7) / 4 * 4;
+  p.R = Lq + Lt;
   p.o_del = o_del; p.e_del = e_del; p.o_ins = o_ins; p.e_ins = e_ins;
   p.match = match; p.mismatch = mismatch;
   return launch_of(sh, p, static_cast<cudaStream_t>(stream));
+}
+
+// slots: int32 [M, R] as global_dp left them; off: int64 [M + 1], the
+// exclusive scan of its counts (off[0] = 0); out: int32 [off[M]] or more.
+// Copies each row's runs to out[off[r]...], rows ascending.
+extern "C" int global_dp_gather(const void* slots, const void* off, void* out,
+                                int M, int R, void* stream) {
+  if (M < 0 || R < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return static_cast<int>(cudaGetLastError());
+  const int blocks = std::min((M + WARPS - 1) / WARPS, GATHER_BLOCKS);
+  gather_runs_kernel<<<blocks, WARPS * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(slots), static_cast<const long long*>(off),
+      static_cast<int32_t*>(out), M, R);
+  return static_cast<int>(cudaGetLastError());
 }

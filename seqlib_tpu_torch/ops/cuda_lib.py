@@ -11,7 +11,8 @@ once.  ``LAUNCHES`` counts launches per kernel (one counter per C
 entry point that launches one); it is the evidence that a run went
 through a kernel.  ``MAIN_PATH`` names the kernels the aligner runs on
 every index (K1, K2 and the global DP with its traceback, ``global_dp``,
-which counts one launch a call, a call of no rows too); ``sa_walk`` runs
+which counts one launch a group of rows, a call of no rows too, beside
+its gather of the CIGAR runs, ``global_dp_gather``, one a call); ``sa_walk`` runs
 on a loaded one (a sampled SA) only, and
 the rectangle kernels K3-K5 only on the extension bench path
 (``bench_sw``).  Launches come from several host threads on a mesh
@@ -59,8 +60,9 @@ SIGNATURES = {
         "sa_l2_read": [_VP, _CL, _CI, _CI, _VP, _VP],
     },
     "global_dp": {
-        "global_dp": [_VP] * 10 + [_CI] * 11 + [_VP],
+        "global_dp": [_VP] * 11 + [_CI] * 11 + [_VP],
         "global_dp_plan": [_CI, _CI, ctypes.POINTER(_CL)],
+        "global_dp_gather": [_VP] * 3 + [_CI] * 2 + [_VP],
     },
     "sw_rect": {
         "sw_extend_rect": [_VP] * 6 + [_CI] * 10 + [_VP],
@@ -79,7 +81,7 @@ SIGNATURES = {
 LIBRARIES = tuple(SIGNATURES)
 MAIN_PATH = ("sw_extend", "smem_machine", "global_dp")
 LAUNCHES = {name: 0 for name in MAIN_PATH + (
-    "sa_walk", "sw_extend_rect", "sw_extend_rect_blocked",
+    "global_dp_gather", "sa_walk", "sw_extend_rect", "sw_extend_rect_blocked",
     "sw_extend_rect_interleaved")}
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -13,10 +13,12 @@ launches K3 from ``csrc/sw_rect.cu`` on CUDA tensors and runs
 shared with K4 and K5 (``ops.sw_variants``).
 
 ``global_traceback_cuda`` launches ``csrc/global_dp.cu``: the banded
-global DP and its traceback in one launch, what
-``align.device_pipeline.global_and_traceback`` runs on CUDA tensors (the
-plain route, ``global_batch`` and the torch walk, runs on CPU tensors).
-It replaces no TPU kernel: the JAX package runs that stage in XLA.
+global DP and its traceback in one launch, which hands over each row's
+CIGAR runs, then one launch that gathers the runs into one flat array;
+what ``align.device_pipeline.global_and_traceback`` runs on CUDA tensors
+(the plain route, ``global_batch`` and the torch walk, runs on CPU
+tensors).  It replaces no TPU kernel: the JAX package runs that stage in
+XLA.
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ from .sw import RECT_MAX_LT, check_rect_shape, extend_batch, extend_rect
 KERNEL = "sw_extend"
 RECT_LIB = "sw_rect"
 GLOBAL = "global_dp"
+GATHER = "global_dp_gather"
 # the tracer's counters of one global DP call, in the kernel's totals order
-GLOBAL_COUNTERS = ("global_dp.dp_rows_run", "traceback.steps")
+GLOBAL_COUNTERS = ("global_dp.dp_rows_run", "traceback.steps",
+                   "traceback.runs")
 
 # which branch each adaptive call took (tests check all three run); moved
 # under cuda_lib's counters' lock
@@ -225,18 +229,35 @@ def _global_plan(device_index: int, Lq: int, Lt: int) -> tuple:
     return tuple(out)
 
 
+def _slot_rows(M: int) -> int:
+    """Rows of the run slots allocated for a call of M rows: the next power
+    of two, so that calls of nearby sizes reuse one cached block."""
+    return 1 << max(M - 1, 0).bit_length()
+
+
 def global_traceback_cuda(q, ql, t, tl, o_del: int = 6, e_del: int = 1,
                           o_ins: int = 6, e_ins: int = 1, match: int = 1,
-                          mismatch: int = 4, band: int = 208):
-    """``global_and_traceback`` in one launch of ``csrc/global_dp.cu`` on
-    CUDA tensors (raises on anything else): (score int32 [M], packed
-    uint8 [M, T/4], nm int32 [M]), bit-equal to the plain route, with no
-    host read.  Counts one launch a call (``cuda_lib.LAUNCHES``).  While
-    the tracer is on, hands the kernel's device totals of
-    ``GLOBAL_COUNTERS`` to ``profiling.count_device``: the most DP rows a
-    row ran (the plain route's ``global_dp.dp_rows_run``) and the exact
-    longest walk (the plain route's ``traceback.steps`` rounds it up to a
-    multiple of 8, or to T).  Codes are uint8, as the aligner makes
+                          mismatch: int = 4, band: int = 208,
+                          group: int | None = None):
+    """``global_and_traceback`` on CUDA tensors (raises on anything else),
+    with no host read: (score int32 [M], nm int32 [M], run_off int64
+    [M + 1], runs int32), bit-equal to the plain route.  Row r's CIGAR
+    runs, in forward order, are ``runs[run_off[r]:run_off[r + 1]]``, a
+    word each: the op (0 M, 1 D, 2 I) in the top 2 bits, the length in
+    the low 30; ``runs`` holds ``run_off[M]`` of them and room past.
+
+    Rows go through ``csrc/global_dp.cu`` in launches of at most ``group``
+    rows (all in one by default), each writing its rows' runs to a slot of
+    Lq + Lt words a row (the most runs a row whose lengths lie inside its
+    windows can have) and their counts; one scan of the counts gives
+    ``run_off``, and one launch of ``global_dp_gather`` copies the slots'
+    runs to ``runs``.  Counts the launches (``cuda_lib.LAUNCHES``: one a
+    group, a call of no rows too, and one gather).  While the tracer is
+    on, hands the kernel's device totals of ``GLOBAL_COUNTERS`` to
+    ``profiling.count_device``: the most DP rows a row ran (the plain
+    route's ``global_dp.dp_rows_run``), the exact longest walk (the plain
+    route's ``traceback.steps`` rounds it up to a multiple of 8, or to
+    T), and the runs handed over.  Codes are uint8, as the aligner makes
     them."""
     dev = q.device
     guard = cuda_lib.on_device("global_traceback_cuda", dev, ql, t, tl)
@@ -246,38 +267,49 @@ def global_traceback_cuda(q, ql, t, tl, o_del: int = 6, e_del: int = 1,
                          "and t [M, Lt]")
     M, Lq = q.shape
     Lt = t.shape[1]
+    R = Lq + Lt
+    group = max(M, 1) if group is None else group
     qb, tb = q.contiguous(), t.contiguous()
     ql32, tl32 = _lane_args("global_traceback_cuda", dev, M, ql, tl)
-    T = (2 * (Lq + Lt) + 7) // 4 * 4
     score = torch.empty(M, dtype=torch.int32, device=dev)
     nm = torch.empty_like(score)
-    packed = torch.empty((M, T // 4), dtype=torch.uint8, device=dev)
+    run_off = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+    slots = torch.empty(_slot_rows(M) * R, dtype=torch.int32, device=dev)
     totals = torch.zeros(len(GLOBAL_COUNTERS), dtype=torch.int64,
                          device=dev) if profiling.enabled() else None
     vp, ci = ctypes.c_void_p, ctypes.c_int
+
+    def ptr(x, g=0):
+        return vp(x[g:].data_ptr() if x is not None and x.numel() else None)
+
     with guard:
         lib = cuda_lib.load(GLOBAL)
         warps, slab, buf = 0, None, None
         if M:
             _, _, row_bytes, resident, buf_ints = _global_plan(
                 dev.index, Lq, Lt)
-            warps = min(M, resident)
+            warps = min(M, group, resident)
             slab = torch.empty(warps * Lq * row_bytes, dtype=torch.uint8,
                                device=dev)
             buf = torch.empty(warps * buf_ints, dtype=torch.int32,
                               device=dev) if buf_ints else None
-        rc = lib.global_dp(
-            vp(qb.data_ptr()), vp(ql32.data_ptr()), vp(tb.data_ptr()),
-            vp(tl32.data_ptr()), vp(score.data_ptr()),
-            vp(packed.data_ptr()), vp(nm.data_ptr()),
-            vp(totals.data_ptr() if totals is not None else None),
-            vp(slab.data_ptr() if slab is not None else None),
-            vp(buf.data_ptr() if buf is not None else None),
-            ci(M), ci(Lq), ci(Lt), ci(band), ci(o_del), ci(e_del),
-            ci(o_ins), ci(e_ins), ci(match), ci(mismatch), ci(warps),
-            cuda_lib.stream_ptr(dev))
-        cuda_lib.check(rc, GLOBAL)
-        cuda_lib.bump(cuda_lib.LAUNCHES, GLOBAL)
+        for g in range(0, max(M, 1), group):
+            n = min(group, M - g)
+            rc = lib.global_dp(
+                ptr(qb, g), ptr(ql32, g), ptr(tb, g), ptr(tl32, g),
+                ptr(score, g), ptr(nm, g), ptr(run_off, g + 1),
+                ptr(slots, g * R), ptr(totals), ptr(slab), ptr(buf),
+                ci(n), ci(Lq), ci(Lt), ci(band), ci(o_del), ci(e_del),
+                ci(o_ins), ci(e_ins), ci(match), ci(mismatch),
+                ci(min(n, warps)), cuda_lib.stream_ptr(dev))
+            cuda_lib.check(rc, GLOBAL)
+            cuda_lib.bump(cuda_lib.LAUNCHES, GLOBAL)
+        run_off[1:].cumsum_(0)
+        runs = torch.empty(_slot_rows(M) * R, dtype=torch.int32, device=dev)
+        rc = lib.global_dp_gather(ptr(slots), ptr(run_off), ptr(runs),
+                                  ci(M), ci(R), cuda_lib.stream_ptr(dev))
+        cuda_lib.check(rc, GATHER)
+        cuda_lib.bump(cuda_lib.LAUNCHES, GATHER)
         if totals is not None:
             profiling.count_device(GLOBAL_COUNTERS, totals)
-    return score, packed, nm
+    return score, nm, run_off, runs

@@ -1,7 +1,9 @@
 """Inputs of the global DP and its traceback for the tests that hold the
 kernel (``tests/test_torch_gpu.py``) and the plain route
 (``tests/test_torch_sw.py``): windows as the aligner pads them, and the
-edge rows the plain route must keep."""
+edge rows the plain route must keep; and ``runs_of_codes``, the decoder
+that turns the JAX package's packed step codes into the port's CIGAR
+runs, for the tests that hold the port to the JAX package."""
 
 import numpy as np
 
@@ -56,3 +58,27 @@ def global_dp_rows(M: int, Lq: int, Lt: int, seed: int = 0,
     q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
     t[np.arange(Lt)[None, :] >= tl[:, None]] = 4
     return q, ql, t, tl
+
+
+def runs_of_codes(packed, n_rows=None):
+    """The JAX package's traceback output, uint8 [M, T/4] step codes in
+    walk order (4 a byte at bits 0/2/4/6, 3 = no op), -> the port's
+    (run_off int64 [M + 1], runs int32) over its first ``n_rows`` rows
+    (all by default; the others get no runs): the codes unpacked and
+    reversed into forward order, the no-op steps dropped, each stretch of
+    one op a run, its word op << 30 | length."""
+    p = np.asarray(packed).astype(np.uint8)
+    M = p.shape[0]
+    n_rows = M if n_rows is None else n_rows
+    ops = np.stack([(p >> s) & 3 for s in (0, 2, 4, 6)], axis=2)
+    fwd = ops.reshape(M, 4 * p.shape[1])[:n_rows, ::-1]
+    rows, cols = np.nonzero(fwd < 3)
+    vals = fwd[rows, cols].astype(np.int64)
+    brk = np.ones(vals.size, bool)
+    brk[1:] = (rows[1:] != rows[:-1]) | (vals[1:] != vals[:-1])
+    starts = np.flatnonzero(brk)
+    lens = np.diff(np.append(starts, vals.size))
+    run_off = np.zeros(M + 1, np.int64)
+    run_off[1:] = np.cumsum(np.bincount(rows[starts], minlength=M))
+    words = ((vals[starts] << 30) | lens).astype(np.uint32)
+    return run_off, words.view(np.int32)

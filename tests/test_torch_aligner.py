@@ -27,7 +27,8 @@ from seqlib_tpu.index import FMIndex as JaxFMIndex
 from seqlib_tpu_torch.align import (AlignerOptions, AlnReg, BWAAligner,
                                     FusedOverflowError)
 from seqlib_tpu_torch.align.aligner import approx_mapq
-from seqlib_tpu_torch.align.device_full import FLAG_OVER, NFIELD
+from seqlib_tpu_torch.align.device_full import (FLAG_OVER,
+                                                FLAG_PERFECT, NFIELD)
 from seqlib_tpu_torch.index import FMIndex
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -161,23 +162,83 @@ def test_long_read_raises(aligners, genome):
         ta.align_batch_bam([genome[1000:2100]], ["long"], sam=True)
 
 
-def test_host_global_pass_equals_jax(aligners, all_reads):
-    """50 truncation-stress reads in a 64-read batch: more live regions
+@pytest.fixture(scope="module")
+def host_pass_results(aligners, all_reads):
+    """50 truncation-stress reads in a 64-read batch and the JAX
+    package's fused device program on them, run once: more live regions
     than global-DP rows (dp_rows(64) = 64), so some are flagged
-    FLAG_OVER and take the host global pass; payloads stay equal."""
+    FLAG_OVER and take the host global pass; and the port's, on the
+    CPU."""
     ja, ta = aligners
     part = all_reads[900:950]
+    enc, lens = ja._encode_batch([s for _, s in part])
+    return part, enc, lens, ja._dispatch_full(enc, lens), \
+        ta._dispatch_full(enc, lens)
+
+
+def test_host_global_pass_equals_jax(aligners, host_pass_results):
+    """The truncation-stress batch: some regions take the host global
+    pass; the payload equals the JAX package's (its finisher on its own
+    device result, what its ``align_batch_bam`` runs)."""
+    ja, ta = aligners
+    part, enc, lens, s1, res = host_pass_results
     seqs, names = [s for _, s in part], [n for n, _ in part]
-    enc, lens = ta._encode_batch(seqs)
-    regions = ta._dispatch_full(enc, lens)[0].numpy()
+    regions = res[0].numpy()
     flags = regions[:, :7 * NFIELD].reshape(-1, 7, NFIELD)[:, :, 8]
     assert ((flags & FLAG_OVER) != 0).sum() > 0
     ja.reset_stats()
-    want = ja.align_batch_bam(seqs, names, sam=True)
+    want = ja._payload_batch([Read(n, s) for n, s in part], enc, lens, s1,
+                             False, 0.9, 10, True)
     assert ja.stats["fused_overflow_fallback"] == 0
     got = ta.align_batch_bam(seqs, names, sam=True)
     assert got[0] == want[0]
     assert np.array_equal(got[1], want[1])
+
+
+def _hits_by_slot(cols):
+    """Columnar hits -> {(read, slot): (CIGAR runs as (op, length), NM,
+    match length of a hit with no runs)}: the hits compared one by one,
+    whatever the arrays' layout."""
+    out = {}
+    for i in range(cols["read_idx"].size):
+        o, n = int(cols["cig_off"][i]), int(cols["cig_n"][i])
+        runs = list(zip(cols["run_ops"][o:o + n].tolist(),
+                        cols["run_lens"][o:o + n].tolist()))
+        out[int(cols["read_idx"][i]), int(cols["slot"][i])] = (
+            runs, int(cols["nm"][i]), 0 if n else int(cols["match_len"][i]))
+    return out
+
+
+@pytest.mark.parametrize("batch", ["corpus", "host_pass"])
+def test_host_cols_equal_the_code_decode(aligners, corpus, jax_device_result,
+                                         host_pass_results, batch):
+    """The fused path's columns, hit by hit: each hit's CIGAR runs (the
+    global DP's run words, through ``cig_off``/``cig_n``), NM and match
+    length equal the JAX package's, whose runs come from the run-length
+    decode of its packed traceback codes (``_ops_to_runs(_unpack_ops(
+    ...))``, the decode the port's finish ran before its global DP handed
+    over runs), on the device's DP rows and, in the truncation batch, on
+    the host global pass's FLAG_OVER rows.  The corpus's payload is
+    byte-identical (the truncation batch's: the test above)."""
+    ja, ta = aligners
+    if batch == "corpus":
+        enc, lens, s1 = jax_device_result
+        part, res = corpus, ta._dispatch_full(enc, lens)
+    else:
+        part, enc, lens, s1, res = host_pass_results
+    want = _hits_by_slot(ja._hits_cols_from_full(enc, lens, s1))
+    got = _hits_by_slot(ta._hits_cols_from_full(enc, lens, res))
+    assert got == want
+    assert sum(len(r) > 1 for r, _, _ in got.values()) > 0
+    flags = res[0].numpy()[:, :7 * NFIELD].reshape(-1, 7, NFIELD)[:, :, 8]
+    kinds = FLAG_PERFECT if batch == "corpus" else FLAG_OVER
+    assert sum(bool(flags[k] & kinds) for k in got) > 0
+    if batch != "corpus":
+        return
+    chunk = [Read(n, s) for n, s in part]
+    g = ta._payload_batch(chunk, enc, lens, res, False, 0.9, 10, True)
+    w = ja._payload_batch(chunk, enc, lens, s1, False, 0.9, 10, True)
+    assert g[0] == w[0] and np.array_equal(g[1], w[1])
 
 
 def _mapq_se(opt, r):

@@ -488,15 +488,31 @@ GLOBAL_SHAPES = {
 }
 
 
+def _assert_gdp_equal(got, want, what):
+    """The kernel's (score, nm, run_off, runs) against the plain route's:
+    score, NM and offsets bit-equal, and the kernel's first run_off[M]
+    run words the plain route's runs (the kernel's array has room past
+    them)."""
+    for g, w, name in zip(got[:3], want[:3], ("score", "nm", "run_off")):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        assert torch.equal(g, w), (what, name)
+    n = int(want[2][-1])
+    assert got[3].dtype == want[3].dtype == torch.int32
+    assert want[3].numel() == n and got[3].numel() >= n
+    assert torch.equal(got[3][:n], want[3]), (what, "runs")
+
+
 @pytest.mark.parametrize("shape", list(GLOBAL_SHAPES))
 def test_global_dp_kernel_equals_plain(cuda, shape):
     """The global DP kernel against the plain route on the same CUDA
-    inputs (``global_dp_rows``: edited windows, random ones, and the
-    edge rows ql = 0, tl = 0, both, all-N windows, an end cell outside
-    the band): score, packed ops and NM bit-equal, one launch a call.
-    Under the tracer the kernel reads nothing on the host, its
-    dp_rows_run equals the plain route's, and its exact longest walk is
-    the plain route's traceback.steps before the rounding up to 8."""
+    inputs (``global_dp_rows``: edited windows whose gaps open and extend,
+    random ones, and the edge rows ql = 0, tl = 0, both, all-N windows,
+    an end cell outside the band): score, NM, run offsets and CIGAR runs
+    bit-equal, one DP launch and one gather a call.  Under the tracer the
+    kernel reads nothing on the host, its dp_rows_run equals the plain
+    route's, its exact longest walk is the plain route's traceback.steps
+    before the rounding up to 8, and its traceback.runs the plain
+    route's, the runs handed over."""
     M, Lq, Lt, band = GLOBAL_SHAPES[shape]
     q, ql, t, tl = (torch.from_numpy(a).to(cuda)
                     for a in global_dp_rows(M, Lq, Lt, seed=M + Lt,
@@ -508,18 +524,20 @@ def test_global_dp_kernel_equals_plain(cuda, shape):
         want = global_and_traceback_plain(q, ql, t, tl, band=band)
         torch.cuda.synchronize()
     plain = profiling.take().counters
-    n0 = cuda_lib.LAUNCHES["global_dp"]
+    n0 = dict(cuda_lib.LAUNCHES)
     with profiling.tracing():
         got = global_and_traceback(q, ql, t, tl, band=band)
         torch.cuda.synchronize()
     kern = profiling.take().counters
-    assert cuda_lib.LAUNCHES["global_dp"] == n0 + 1
-    for g, w, name in zip(got, want, ("score", "packed", "nm")):
-        assert g.dtype == w.dtype and g.shape == w.shape, name
-        assert torch.equal(g, w), (shape, name)
+    assert cuda_lib.LAUNCHES["global_dp"] == n0["global_dp"] + 1
+    assert cuda_lib.LAUNCHES["global_dp_gather"] \
+        == n0["global_dp_gather"] + 1
+    _assert_gdp_equal(got, want, shape)
     assert plain["sync.traceback.live"] >= 1
     assert not any(k.startswith(("sync.", "upload.")) for k in kern), kern
     assert kern["global_dp.dp_rows_run"] == plain["global_dp.dp_rows_run"]
+    assert kern["traceback.runs"] == plain["traceback.runs"] \
+        == int(want[2][-1])
     T = (2 * (Lq + Lt) + 7) // 4 * 4
     steps = kern["traceback.steps"]
     assert plain["traceback.steps"] == min(T, (steps + 7) // 8 * 8)
@@ -527,6 +545,36 @@ def test_global_dp_kernel_equals_plain(cuda, shape):
         assert steps > 0
     if M and int(ql[4]) + band < Lt:        # row 4 ends outside the band
         assert int(want[0][4]) < -(1 << 29)
+    if M:
+        # rows 0-2 (ql = 0, tl = 0, both) walk one side or not at all;
+        # gaps of several bases are D and I runs past length 1
+        lens = (want[3] & ((1 << 30) - 1)).cpu().numpy()
+        ops = (want[3].cpu().numpy().view(np.uint32) >> 30)
+        assert int(want[2][3] - want[2][2]) == 0
+        assert ((ops == 1) & (lens > 1)).any() and ((ops == 2) & (lens > 1)
+                                                     ).any()
+
+
+def test_global_dp_kernel_groups_equal_one_call(cuda, monkeypatch):
+    """With ``GLOBAL_DP_BYTES`` cut to 700 rows of the fused shape's
+    direction matrix, 2,500 rows go through four DP launches (700, 700,
+    700, 400) into one set of run slots and one gather: score, NM, run
+    offsets and runs equal one launch's and the plain route's."""
+    from seqlib_tpu_torch.align import device_pipeline
+    M, Lq, Lt, band = 2500, 160, 288, 208
+    args = [torch.from_numpy(a).to(cuda)
+            for a in global_dp_rows(M, Lq, Lt, seed=17, band=band)]
+    want = global_and_traceback_plain(*args, band=band)
+    one = global_and_traceback(*args, band=band)
+    monkeypatch.setattr(device_pipeline, "GLOBAL_DP_BYTES",
+                        700 * Lq * (Lt + 1) + 5)
+    n0 = dict(cuda_lib.LAUNCHES)
+    got = global_and_traceback(*args, band=band)
+    assert cuda_lib.LAUNCHES["global_dp"] == n0["global_dp"] + 4
+    assert cuda_lib.LAUNCHES["global_dp_gather"] \
+        == n0["global_dp_gather"] + 1
+    _assert_gdp_equal(one, want, "one launch")
+    _assert_gdp_equal(got, want, "four launches")
 
 
 def test_global_dp_kernel_codes_past_n_and_penalties(cuda):
@@ -541,8 +589,7 @@ def test_global_dp_kernel_codes_past_n_and_penalties(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in (q, ql, t, tl)]
     got = global_and_traceback(*args, **kw)
     want = global_and_traceback_plain(*args, **kw)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    _assert_gdp_equal(got, want, "penalties")
     with pytest.raises(ValueError):
         global_and_traceback(args[0].to(torch.int8), *args[1:], **kw)
 
@@ -567,6 +614,7 @@ def test_main_path_reads_nothing_in_the_global_dp(cuda, genome,
     assert "sync.sw.rows_to_run" not in got
     assert got["sync.global_dp.rows"] == 1
     assert got["traceback.steps"] > 0 and got["global_dp.dp_rows_run"] > 0
+    assert got["traceback.runs"] >= got["global_dp.rows"] > 0
     c = BWAAligner(loaded_index, device="cpu").align_batch_bam(seqs, names,
                                                                sam=True)
     assert g[0] == c[0] and np.array_equal(g[1], c[1])

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from global_dp_rows import runs_of_codes
 from regen_golden import make_repeat_genome, make_repeat_reads
 from seqlib_tpu.align import device_full as jfull
 from seqlib_tpu.align import device_pipeline as jdp
@@ -118,8 +119,13 @@ def test_align_full_equals_jax(setup):
               mask_level_redun=OPT.mask_level_redun, glob_band=2 * OPT.w + 8)
     want = jfull.align_full(jf, jt, jnp.asarray(enc_lens), **kw)
     got = tfull.align_full(tf, tt, torch.from_numpy(enc_lens), **kw)
-    for a, b, name in zip(want, got, ("regions", "snm", "ops")):
+    for a, b, name in zip(want, got, ("regions", "snm")):
         _eq(a, b, name)
+    # the CIGAR runs: those decoded from the JAX package's packed codes
+    off, runs = runs_of_codes(want[2])
+    _eq(off, got[2], "run_off")
+    _eq(runs, got[3][:int(got[2][-1])], "runs")
+    assert off.size == tdp.dp_rows(enc.shape[0]) + 1 and runs.size > 0
     flags = np.asarray(want[0])[:, :7 * jfull.NFIELD].reshape(
         -1, 7, jfull.NFIELD)[:, :, jfull.F_FLAGS]
     assert (flags & jfull.FLAG_EMIT).any() and (flags & jfull.FLAG_PERFECT

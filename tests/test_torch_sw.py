@@ -30,7 +30,7 @@ from seqlib_tpu_torch.align import device_pipeline as tdp
 from seqlib_tpu_torch.bench_sw import set_k1_edges
 from seqlib_tpu_torch.ops import sw as tsw
 from seqlib_tpu_torch.ops import cuda_lib, sw_cuda
-from global_dp_rows import global_dp_rows
+from global_dp_rows import global_dp_rows, runs_of_codes
 from test_sw_banded import _scalar_banded
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -260,8 +260,19 @@ def test_global_batch_and_traceback_equal_jax():
                                         band=band)
         got = tdp.global_and_traceback(*(torch.from_numpy(a)
                                          for a in arrays), band=band)
-        for a, b, name in zip(want, got, ("score", "ops", "nm")):
-            assert np.array_equal(np.asarray(a), b.numpy()), (band, name)
+        _assert_runs_equal_jax(want, got, band)
+
+
+def _assert_runs_equal_jax(want, got, what):
+    """The port's (score, nm, run_off, runs) against the JAX package's
+    (score, packed codes, nm), its codes decoded into runs by the tests'
+    own decoder (``runs_of_codes``)."""
+    off, runs = runs_of_codes(want[1])
+    for a, b, name in ((want[0], got[0], "score"), (want[2], got[1], "nm"),
+                       (off, got[2], "run_off"), (runs, got[3], "runs")):
+        assert np.array_equal(np.asarray(a), b.numpy()), (what, name)
+    assert got[2].dtype == torch.int64 and got[3].dtype == torch.int32
+    assert runs.size > 0
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -281,15 +292,18 @@ def test_global_and_traceback_edge_rows_equal_jax(band):
     """The plain route on the rows the kernel's tests use
     (``global_dp_rows``: edited and random windows, ql = 0, tl = 0,
     both, all-N windows, an end cell outside the band) equals the JAX
-    package: score, packed ops and NM."""
+    package: score, NM, and CIGAR runs equal to those decoded from its
+    packed codes; the rows with no walk (ql = tl = 0) have no runs."""
     arrays = global_dp_rows(40, 48, 80, seed=band, band=band)
     want = jdp.global_and_traceback(*(jnp.asarray(a) for a in arrays),
                                     band=band)
     got = tdp.global_and_traceback(*(torch.from_numpy(a) for a in arrays),
                                    band=band)
-    for a, b, name in zip(want, got, ("score", "ops", "nm")):
-        assert np.array_equal(np.asarray(a), b.numpy()), (band, name)
+    _assert_runs_equal_jax(want, got, band)
     assert int(arrays[1][4]) + band >= 80 or int(got[0][4]) == tsw.NEG
+    off = got[2].numpy()
+    empty = (arrays[1] == 0) & (arrays[3] == 0)
+    assert empty.any() and (np.diff(off)[empty] == 0).all()
 
 
 def test_global_and_traceback_cpu_takes_the_plain_route():
@@ -310,12 +324,13 @@ def test_global_and_traceback_cpu_takes_the_plain_route():
     assert counters["sync.traceback.live"] >= 1
     assert counters["sync.sw.rows_to_run"] == 1
     assert counters["traceback.steps"] % 8 == 0
+    assert counters["traceback.runs"] == int(got[2][-1]) == got[3].numel()
 
 
 def test_global_and_traceback_groups_equal_one_call(monkeypatch):
     """With ``GLOBAL_DP_BYTES`` cut to 7 rows of direction matrix, 25
-    rows go through in four calls (7, 7, 7, 4) whose score, packed codes
-    and NM equal one ungrouped call's."""
+    rows go through in four calls (7, 7, 7, 4) whose score, NM and runs,
+    joined with their offsets rebased, equal one ungrouped call's."""
     arrays = [torch.from_numpy(a) for a in global_dp_rows(25, 32, 60,
                                                           seed=5, band=12)]
     plain = tdp.global_and_traceback_plain
@@ -331,8 +346,9 @@ def test_global_and_traceback_groups_equal_one_call(monkeypatch):
     monkeypatch.setattr(tdp, "GLOBAL_DP_BYTES", 7 * 32 * (60 + 1) + 5)
     got = tdp.global_and_traceback(*arrays, band=12)
     assert calls == [25, 7, 7, 7, 4]
-    for g, w, name in zip(got, want, ("score", "ops", "nm")):
+    for g, w, name in zip(got, want, ("score", "nm", "run_off", "runs")):
         assert torch.equal(g, w), name
+    assert int(want[2][-1]) == want[3].numel() > 0
 
 
 def test_global_dp_launcher_refuses_cpu_tensors():
@@ -355,15 +371,17 @@ def test_global_dp_kernel_module_imports_without_a_gpu():
         assert not torch.cuda.is_available()
         assert "global_dp" in cuda_lib.MAIN_PATH
         assert set(cuda_lib.SIGNATURES["global_dp"]) == {
-            "global_dp", "global_dp_plan"}
+            "global_dp", "global_dp_plan", "global_dp_gather"}
         assert os.path.exists(os.path.join(cuda_lib.CSRC, "global_dp.cu"))
         g = torch.Generator().manual_seed(0)
         q = torch.randint(0, 5, (6, 20), generator=g, dtype=torch.uint8)
         t = torch.randint(0, 5, (6, 30), generator=g, dtype=torch.uint8)
         ql = torch.randint(0, 21, (6,), generator=g)
-        s, p, n = dp.global_and_traceback(q, ql, t, ql + 5, band=8)
-        assert s.shape == (6,) and p.shape == (6, 26) and n.shape == (6,)
+        s, n, off, runs = dp.global_and_traceback(q, ql, t, ql + 5, band=8)
+        assert s.shape == (6,) and n.shape == (6,) and off.shape == (7,)
+        assert runs.shape == (int(off[-1]),)
         assert cuda_lib._libs == {} and cuda_lib.LAUNCHES["global_dp"] == 0
+        assert cuda_lib.LAUNCHES["global_dp_gather"] == 0
         print("ok")
     """)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
